@@ -1,11 +1,13 @@
 """nbody_tpu_torch — the PyTorch / CUDA port of ``nbody_tpu``.
 
 Softened Newtonian gravity integrated with a drift-kick-drift leapfrog inside
-an open box, on fixed-capacity tensors with an alive mask.  The direct-sum
-path is ported: scenes, state, integrators, stepper, energy, the ``brute``
-engines and the ``brute-pallas`` engines, whose all-pairs sums run in
-hand-written CUDA kernels for Hopper (``csrc/pairwise.cu``) on the card and
-in plain torch on the CPU.  The JAX package ``nbody_tpu`` stays beside it as
+an open box, on fixed-capacity tensors with an alive mask.  Ported: scenes,
+state, integrators, stepper, exact energy, the ``brute`` and
+``brute-pallas`` engines, whose all-pairs sums run in hand-written CUDA
+kernels for Hopper (``csrc/pairwise.cu``), and the Barnes-Hut engines
+``bh`` / ``bh-deep`` (Morton octree, vectorized group walk; their group and
+quadrupole sums run in ``csrc/group_force.cu``).  On the CPU the same
+engines run plain torch.  The JAX package ``nbody_tpu`` stays beside it as
 the reference the port is tested against; this package never imports jax.
 """
 

@@ -11,8 +11,10 @@
     save(path) / load(path)           pickle, same payload as the JAX package
 
 ``device="cuda"`` runs on the card or raises; nothing silently runs on the
-CPU.  Not yet ported (they raise): the Barnes-Hut engines, ``engine='auto'``
-above N = 60000 (it picks ``bh`` there) and ``compensated=True``.
+CPU.  ``engine_options`` bind build options of the ``bh`` engines (a
+``profile`` and ``BHConfig`` fields).  Not yet ported (they raise):
+``compensated=True``, the ``adaptive`` profile, and with it the steep-core
+route of ``engine='auto'``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ from nbody_tpu_torch.core.energy import resolve_energy_method, total_energy
 from nbody_tpu_torch.core.state import ParticleState, SimParams
 from nbody_tpu_torch.core.stepper import make_run, make_step
 from nbody_tpu_torch.engines import Engine, get_engine
+from nbody_tpu_torch.ops.traversal import (
+    ROADMAP_ADAPTIVE,
+    STEEP_CONTRAST,
+    detect_scene_profile,
+    scene_occupancy,
+)
 
 # brute/bh crossover kept from the JAX package (measured on a TPU v5e,
 # nbody_tpu/api.py:49-59); still to be decided again on the H100
@@ -47,16 +55,28 @@ def resolve_device(device) -> torch.device:
 
 
 def resolve_auto_engine(n: int, device) -> str:
-    """Engine choice for ``engine="auto"``: direct sum up to N = 60000, on
-    the card through the CUDA kernels.  Above it the JAX package picks
-    ``bh``, which is not yet ported, so this raises there."""
+    """Engine choice for ``engine="auto"``: direct sum up to N = 60000 (on
+    the card through the CUDA kernels), Barnes-Hut above."""
     if n > _AUTO_BRUTE_MAX_N:
-        raise NotImplementedError(
-            f"engine='auto' picks 'bh' above N = {_AUTO_BRUTE_MAX_N}, and bh "
-            "is not yet ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
-            "items 8-11); pass engine='brute-pallas' for the direct sum"
-        )
+        return "bh"
     return "brute" if torch.device(device).type == "cpu" else "brute-pallas"
+
+
+def _check_scene_profile(pos, bounds_center, bounds_width):
+    """``engine='auto'`` picking ``bh`` detects steep-core scenes as the JAX
+    package does; it routes them to the adaptive profile, which is not
+    ported, so such a scene raises instead of running the disc-tuned
+    ``fast`` profile outside its accuracy envelope."""
+    occ = scene_occupancy(pos, bounds_center, bounds_width)
+    if detect_scene_profile(pos, bounds_center, bounds_width,
+                            occupancy=occ) == "adaptive":
+        raise NotImplementedError(
+            f"engine='auto': steep-core scene detected (occupancy contrast "
+            f"{occ['contrast']:.0f} > {STEEP_CONTRAST:.0f}), which the JAX "
+            "package routes to profile='adaptive'; that profile is not yet "
+            f"ported to nbody_tpu_torch ({ROADMAP_ADAPTIVE}).  Pass "
+            "engine='bh' to run the fast profile anyway"
+        )
 
 
 class Simulation:
@@ -73,6 +93,7 @@ class Simulation:
         dtype=torch.float32,
         capacity: Optional[int] = None,
         device="cuda",
+        engine_options: Optional[dict] = None,
         compensated: bool = False,
         **settings,
     ):
@@ -84,7 +105,11 @@ class Simulation:
         self.device = resolve_device(device)
         if engine == "auto":
             engine = resolve_auto_engine(len(mass), self.device)
-        self.engine = get_engine(engine)
+            if engine == "bh" and not (engine_options or {}).get("profile"):
+                _check_scene_profile(pos, bounds_center, bounds_width)
+        self.engine = get_engine(engine, **(engine_options or {}))
+        #: the engine's build options, as given
+        self.engine_options = dict(engine_options or {})
         # capacities match the JAX package's, which pads the kernel engines
         # to a multiple of 2048
         pad_multiple = 2048 if "pallas" in self.engine.name else 128

@@ -5,9 +5,13 @@ Example:
     python -m nbody_tpu_torch -n 65535 --engine brute-pallas --steps 25 \
         --energy --energy-exact --json --device cuda
 
-Flags of paths that are not ported yet (sharding, the Barnes-Hut profiles,
-the compensated stepper, profiling) are accepted by the parser so that a
-command line of the JAX package reads the same, and exit with a message.
+    python -m nbody_tpu_torch -n 1048575 --engine bh --steps 10 --json \
+        --device cuda
+
+Flags of paths that are not ported yet (sharding, the adaptive Barnes-Hut
+profile and refinement, walk reuse, the compensated stepper, profiling) are
+accepted by the parser so that a command line of the JAX package reads the
+same, and exit with a message.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import torch
 
 from nbody_tpu_torch.api import Simulation
 from nbody_tpu_torch.engines import ENGINES
+from nbody_tpu_torch.ops.traversal import (
+    DENSE_OVERRIDES,
+    ROADMAP_ADAPTIVE,
+    ROADMAP_OPT_IN,
+)
 from nbody_tpu_torch.scenes import SCENES
-
-_BH_FLAG = ("{} belongs to the bh engines, which are not yet ported to "
-            "nbody_tpu_torch (ROADMAP.md, queue 1, items 8-15)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,14 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="auto",
                    choices=["auto"] + sorted(ENGINES),
                    help="force engine; 'auto' picks the direct sum up to "
-                   "N = 60000 (bh above it is not yet ported)")
+                   "N = 60000 and bh above it")
     p.add_argument("--scene", default="disc", choices=sorted(SCENES))
     p.add_argument("--integrator", default="leapfrog")
     p.add_argument("--dt", type=float, default=3e-2, help="timestep")
     p.add_argument("--g", type=float, default=1.0)
     p.add_argument("--g-soft", type=float, default=0.02, help="softening")
     p.add_argument("--theta2", type=float, default=1.0,
-                   help="BH opening angle^2 (kept in the settings)")
+                   help="BH opening angle^2")
     p.add_argument("--box-width", type=float, default=10.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true",
@@ -71,9 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="not yet ported (profiler trace)")
     p.add_argument("--accurate", action="store_true",
-                   help="not yet ported (bh profile)")
+                   help="BH accuracy profile: window pad 2048 (bh engines "
+                   "only)")
     p.add_argument("--dense", action="store_true",
-                   help="not yet ported (bh profile)")
+                   help="BH steep-core profile: depth-8 leaf grid and doubled "
+                   "walk budgets (bh engines only)")
     p.add_argument("--adaptive", action="store_true",
                    help="not yet ported (bh profile)")
     p.add_argument("--refine", type=int, default=0, metavar="R",
@@ -90,11 +98,13 @@ def _reject_unported(args):
         raise SystemExit("--devices (sharding over several devices) is not "
                          "yet ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
                          "item 17)")
-    for flag, on in (("--accurate", args.accurate), ("--dense", args.dense),
-                     ("--adaptive", args.adaptive), ("--refine", args.refine),
-                     ("--walk-every", args.walk_every > 1)):
+    for flag, on, item in (("--adaptive", args.adaptive, ROADMAP_ADAPTIVE),
+                           ("--refine", args.refine, ROADMAP_ADAPTIVE),
+                           ("--walk-every", args.walk_every > 1,
+                            ROADMAP_OPT_IN)):
         if on:
-            raise SystemExit(_BH_FLAG.format(flag))
+            raise SystemExit(f"{flag} is not yet ported to nbody_tpu_torch "
+                             f"({item})")
     if args.compensated:
         raise SystemExit("--compensated (the TwoSum stepper) is not yet "
                          "ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
@@ -110,6 +120,14 @@ def main(argv=None) -> dict:
     device = "cpu" if args.cpu else args.device
     dtype = torch.float64 if args.f64 else torch.float32
 
+    eng_opts = {}
+    for flag, on, opts in (("--accurate", args.accurate, dict(window_pad=2048)),
+                           ("--dense", args.dense, DENSE_OVERRIDES)):
+        if on:
+            if not args.engine.startswith("bh"):
+                raise SystemExit(f"{flag} applies to bh engines only")
+            eng_opts.update(opts)
+
     pos, vel, mass = SCENES[args.scene](args.num_points, seed=args.seed)
     sim = Simulation(
         pos, vel, mass,
@@ -120,6 +138,7 @@ def main(argv=None) -> dict:
         dtype=dtype,
         device=device,
         dt=args.dt, g=args.g, g_soft=args.g_soft, theta2=args.theta2,
+        engine_options=eng_opts or None,
     )
 
     e_method = "exact" if args.energy_exact else "auto"

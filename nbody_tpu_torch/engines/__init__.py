@@ -2,7 +2,9 @@
 
 An engine is a named force function ``force(pos, mass_eff, params) -> acc``
 where ``mass_eff`` is already zeroed for dead particles.  All engines share
-the step loop in ``core/stepper.py``.
+the step loop in ``core/stepper.py``.  A registry entry is an ``Engine`` or a
+factory taking build options (``get_engine(name, **options)``), as in the
+JAX package.
 
 Only engines whose every part is ported are registered, so the registry
 never lists an engine that does not exist.  The JAX package's other engine
@@ -16,10 +18,7 @@ from typing import Callable
 
 ENGINES: dict = {}
 
-_BH = "the Barnes-Hut slice (ROADMAP.md, queue 1, items 8-11)"
 NOT_YET_PORTED = {
-    "bh": _BH,
-    "bh-deep": _BH,
     "bh-lazy": "the off-main-path BH variants (ROADMAP.md, queue 1, item 16)",
     "brute-pallas-mxu": "kernel K6 (ROADMAP.md, queue 2)",
 }
@@ -38,8 +37,9 @@ def register(engine: Engine) -> Engine:
     return engine
 
 
-def get_engine(name) -> Engine:
-    """Look up an engine by name (an ``Engine`` passes through)."""
+def get_engine(name, **options) -> Engine:
+    """Look up an engine by name (an ``Engine`` passes through).  Options
+    are bound through the factory registered under the name."""
     if isinstance(name, Engine):
         return name
     if name in NOT_YET_PORTED:
@@ -48,11 +48,21 @@ def get_engine(name) -> Engine:
             f"with {NOT_YET_PORTED[name]}"
         )
     try:
-        return ENGINES[name]
+        entry = ENGINES[name]
     except KeyError:
         raise KeyError(f"unknown engine {name!r}; available: {sorted(ENGINES)}") from None
+    if not isinstance(entry, Engine):
+        return entry(**options)
+    if options:
+        raise TypeError(
+            f"engine {name!r} takes no build options (got {sorted(options)})")
+    return entry
 
 
 # Import engine modules for their registration side effects.
 from nbody_tpu_torch.engines import brute_force as _bf  # noqa: E402,F401
 from nbody_tpu_torch.ops import pairwise as _pw  # noqa: E402,F401  (brute-pallas)
+from nbody_tpu_torch.engines import barnes_hut as _bh  # noqa: E402
+
+ENGINES["bh"] = _bh.bh_factory
+ENGINES["bh-deep"] = _bh.bh_deep_factory

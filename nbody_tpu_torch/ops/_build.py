@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``nbody_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface: ``nvcc`` compiles them into a shared
-library in a few seconds (a source that includes PyTorch's headers takes
-minutes), and ``ctypes`` loads it.  The build happens at first use, never at
+The sources have a plain C interface: ``nvcc`` compiles each of them into
+an object in a few seconds (a source that includes PyTorch's headers takes
+minutes), all of them at once, links the objects into one shared library,
+and ``ctypes`` loads it.  The build happens at first use, never at
 import, into ``build/nbody_tpu_torch/`` at the root of the checkout (listed
 in ``.gitignore``), under a name keyed by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused.
@@ -25,10 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nbody_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 _BUILD_TIMEOUT_S = 900
 
 
@@ -61,27 +61,53 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its
-    path.  nvcc's output (with the ``-Xptxas -v`` register and shared-memory
-    report) goes to ``build.log`` beside it."""
+    path.  One nvcc per source, all started together, then one link.
+    nvcc's output (with the ``-Xptxas -v`` register and shared-memory
+    report) goes to ``build.log`` beside the library."""
     lib = library_path()
     if lib.exists():
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=_BUILD_TIMEOUT_S)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, lib)
+    tag = f"{lib.stem}.{os.getpid()}"
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(sources, objs)]
+    tmp = lib.with_name(f"{tag}.tmp")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *[str(o) for o in objs]]
+    log = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = []
+        for c, proc in zip(cmds, procs):
+            try:
+                out, _ = proc.communicate(timeout=_BUILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            log.append(" ".join(c) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append((c[-1], proc.returncode, out))
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True,
+                                  timeout=_BUILD_TIMEOUT_S)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(("link", proc.returncode, proc.stderr))
+        (BUILD_DIR / "build.log").write_text("".join(log))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            what, rc, out = failed[0]
+            raise RuntimeError(
+                f"nvcc failed ({what}) with exit code {rc}:\n{out[-4000:]}")
+        os.replace(tmp, lib)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 
@@ -100,6 +126,10 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_acc_targets.restype = i
     lib.nbody_acc_sym.argtypes = [p, p, i, f, f, p, ctypes.c_longlong, p, p]
     lib.nbody_acc_sym.restype = i
+    lib.nbody_group_force.argtypes = [p, p, p, i, i, i, i, i, i, f, f, p, p]
+    lib.nbody_group_force.restype = i
+    lib.nbody_quad_force.argtypes = [p, p, i, i, i, f, f, p, p]
+    lib.nbody_quad_force.restype = i
     lib.nbody_sym_tile.argtypes = []
     lib.nbody_sym_tile.restype = i
     lib.nbody_error_string.argtypes = [i]

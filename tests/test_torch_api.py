@@ -93,7 +93,9 @@ def test_set_settings_live():
     assert sim.elapsed == pytest.approx(t + 2e-2, rel=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(compensated=True), dict(engine="bh"),
+@pytest.mark.parametrize("kw", [dict(compensated=True),
+                                dict(engine="bh",
+                                     engine_options=dict(profile="adaptive")),
                                 dict(engine="bh-lazy"),
                                 dict(engine="brute-pallas-mxu")])
 def test_unported_options_raise(kw):
@@ -104,8 +106,8 @@ def test_unported_options_raise(kw):
 def test_auto_engine():
     assert resolve_auto_engine(60000, "cpu") == "brute"
     assert resolve_auto_engine(60000, "cuda") == "brute-pallas"
-    with pytest.raises(NotImplementedError, match="bh"):
-        resolve_auto_engine(60001, "cuda")
+    assert resolve_auto_engine(60001, "cuda") == "bh"
+    assert resolve_auto_engine(60001, "cpu") == "bh"
     assert make(50, engine="auto").engine.name == "brute"
 
 
@@ -116,8 +118,10 @@ def test_unknown_device_and_engine():
         make(10, engine="warp-drive")
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--accurate"],
-                                  ["--dense"], ["--adaptive"],
+@pytest.mark.parametrize("flag", [["--devices", "2"],
+                                  ["--engine", "bh", "--adaptive"],
+                                  ["--engine", "bh-deep", "--refine", "1"],
+                                  ["--adaptive"],
                                   ["--refine", "2"], ["--walk-every", "3"],
                                   ["--compensated"], ["--profile", "prof"]])
 def test_cli_unported_flags_exit(flag):
@@ -133,3 +137,39 @@ def test_cli_text_output_f64_cpu(capsys):
     assert "steps/second" in out and "Elapsed:" in out and "Energy:" in out
     assert res["engine"] == "brute-pallas" and res["n_alive"] == 101
     assert res["energy_drift"] < 1e-6
+
+
+@pytest.mark.parametrize("flag", ["--accurate", "--dense"])
+def test_cli_bh_profiles_need_a_bh_engine(flag):
+    with pytest.raises(SystemExit, match="applies to bh engines only"):
+        cli.main(["-n", "10", "--steps", "1", "--cpu", flag])
+
+
+def test_auto_engine_refuses_steep_core_scenes():
+    """engine='auto' above N = 60000 detects a steep core as the JAX package
+    does; it would route it to the unported adaptive profile, so it raises
+    rather than run the disc-tuned profile.  The disc itself passes."""
+    from nbody_tpu_torch.api import _check_scene_profile
+    from nbody_tpu_torch.scenes import SCENES
+
+    _check_scene_profile(SCENES["disc"](70000, seed=0)[0], (0, 0, 0), 10.0)
+    plummer = SCENES["plummer"](70000, seed=0)[0]
+    with pytest.raises(NotImplementedError, match="item 15"):
+        _check_scene_profile(plummer, (0, 0, 0), 40.0)
+
+
+def test_bh_engines_and_their_limits():
+    """bh / bh-deep bind their leaf depth and options; a 2D state on bh
+    raises naming its ROADMAP item instead of running."""
+    from nbody_tpu_torch import get_engine
+
+    assert "max_level=7" in get_engine("bh").description
+    assert "max_level=8" in get_engine("bh-deep").description
+    assert "window_pad=2048" in get_engine(
+        "bh", profile="accurate").description
+    with pytest.raises(NotImplementedError, match="item 16"):
+        get_engine("bh", walk_every=2)
+    flat = Simulation(np.zeros((50, 2)), np.zeros((50, 2)), np.ones(50),
+                      engine="bh", bounds_center=(0.0, 0.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        flat.run(1)
