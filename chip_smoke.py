@@ -5,8 +5,8 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs ten phases, each printing one
-line and stopping the script with a non-zero exit on failure:
+(one nvcc per source, all at once), then runs fifteen phases, each printing
+one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
   2. build: compile and load the kernels;
@@ -32,10 +32,37 @@ line and stopping the script with a non-zero exit on failure:
      two force calls are bitwise equal, and the forces of 4096 sampled
      alive rows meet the accuracy envelope against the K2 oracle;
  10. times: K3 and K4 beside their twins at the shapes of both runs,
-     steps/s of both runs, and one 1M force call split by phase.
+     steps/s of both runs, and one 1M force call split by phase;
+ 11. K5 (each group's Newton-3 self square, ``near_sym``) against its plain
+     twin: hand-built groups with masked source masses, eps = 0 with
+     coincident rows, and the whole calls (every group) that the 1M and
+     100k ``near_sym`` walks make, each group held on its own, and those
+     against the plain sum in float64; momentum within each group;
+ 12. K6 (the norm-trick all-pairs kernel of ``brute-pallas-mxu``) against
+     its plain twin on the Morton-sorted disc at N = 2048 and 65536;
+ 13. the ``near_sym`` path through ``Simulation(engine="bh",
+     engine_options={"near_sym": True})``: the 1M bench run (10 steps) and
+     the 100k flagship (100 steps, exact energy).  Each must launch K5
+     every step; on its final state the walk statistics equal a plain bh
+     call's, the forces match it to f32 summation order (median and worst
+     row) and the K2 oracle within phase 9's envelope, and two calls are
+     bitwise equal;
+ 14. the ``brute-pallas-mxu`` path through the CLI: the disc at N = 65536
+     for 25 steps, K6 every step, energy drift, and the forces on the
+     initial and the final state against a float64 direct sum (and the K2
+     oracle, printed) within 4x the JAX kernel's own error on those states
+     (tests/torch_mxu_bound.py);
+ 15. times: K5 at the 1M and 100k shapes, K3 on the 1M ``near_sym`` slab,
+     K6 at 65536, each beside its twin; steps/s with and without
+     ``near_sym`` at both sizes; one 1M ``near_sym`` force call split by
+     phase.
 
-The line before the last is the card's name and power limit as nvidia-smi
-reports them; the last line is the result JSON.
+Every kernel's line in the ``kernels`` JSON carries its least time on the
+card for the work of the timed call (``bound_ms``, from the operation and
+byte counts below and the H100 SXM's published rates) and ``library_ms``:
+null, as no single PyTorch call computes a softened-gravity sum.  The line
+before the last is the card's name and power limit as nvidia-smi reports
+them; the last line is the result JSON.
 """
 
 import json
@@ -49,7 +76,25 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "nbody_tpu_torch/csrc/pairwise.cu"
 SOURCE_BH = "nbody_tpu_torch/csrc/group_force.cu"
+SOURCE_MXU = "nbody_tpu_torch/csrc/pairwise_mxu.cu"
 G, EPS = 1.0, 0.02  # the main-path settings (the CLI defaults)
+
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM,
+# and the MUFU rsqrt (16 a clock on each of 132 SMs at the 1.98 GHz boost)
+FP32_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+RSQRT_PER_S = 132 * 16 * 1.98e9
+# FP32 arithmetic a pair (an FMA counts two; compares, selects and integer
+# work are not FP32 operations and are not counted), read off the kernels:
+#   d-form, one direction (K2, K3): 3 sub, |d|^2 + eps^2 6, ir^3 2,
+#     * m 1, three FMAs 6                                             = 18
+#   Newton-3 (K1, K5) per unordered pair: those 18, m_i * ir^3 1, three
+#     column FMAs 6                                                   = 25
+#   quadrupole (K4): e 3, r^2 6, ir^2..ir^7 4, Q e 15, e.Qe 5, w 4,
+#     three (w e - ir^5 u) 12                                         = 49
+#     (its 1/r is a double rsqrt, outside this count)
+#   norm trick (K6): cross 5, r^2 4, ir^3 2, * m 1, four sums 7       = 19
+OPS = {"pair": 18, "sym": 25, "quad": 49, "mxu": 19}
 
 
 def require(ok, msg):
@@ -74,6 +119,23 @@ def rel_err(got, ref) -> float:
 def rows_err(got, ref) -> float:
     """rel_err over [G, B, 3] group outputs."""
     return rel_err(got.reshape(-1, 3), ref.reshape(-1, 3))
+
+
+def bound(pairs, ops_per_pair, nbytes, rsqrts=None):
+    """The least time the card could take (ms) and what sets it: the
+    larger of the operations over their peak rate (FP32, or the rsqrts on
+    the MUFU where those take longer) and the bytes over the memory rate
+    (each input read once, each output written once)."""
+    rsqrts = pairs if rsqrts is None else rsqrts
+    t_ops = max(pairs * ops_per_pair / FP32_PER_S, rsqrts / RSQRT_PER_S)
+    t_bytes = nbytes / BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def nnz(x) -> int:
+    return int((x != 0).sum())
 
 
 def species_slab(np, G, B, S, seed):
@@ -271,6 +333,12 @@ def main() -> int:
     k2_ms, k2_plain = pair(lambda: pw.pairwise_acc(pos2, m2, G, EPS),
                            lambda: pw.pairwise_acc_plain(pos2, m2, G, EPS),
                            200, 50)
+    # bounds of the timed calls: K1 needs every pair with a massive member
+    # once, K2 every (target, massive source) pair
+    n1, nm = pos.shape[0], nnz(m)
+    k1_bound = bound(nm * (nm - 1) / 2 + nm * (n1 - nm), OPS["sym"], 28 * n1)
+    k2_bound = bound(pos2.shape[0] * nnz(m2), OPS["pair"],
+                     28 * pos2.shape[0])
     steps = {}
     for engine in ("brute", "brute-pallas", "brute-pallas", "brute"):
         r = cli.main(["-n", "65535", "--engine", engine, "--steps", "25",
@@ -278,7 +346,8 @@ def main() -> int:
         steps.setdefault(engine, []).append(r["steps_per_second"])
     smi = nvidia_smi()
     print(f"[6 times] {smi} | K1 @65536 {k1_ms:.4f} ms (plain {k1_plain:.3f}"
-          f" ms) | K2 @2048 {k2_ms:.4f} ms (plain {k2_plain:.4f} ms) | K2 "
+          f" ms, bound {k1_bound[0]:.4f} ms) | K2 @2048 {k2_ms:.4f} ms (plain "
+          f"{k2_plain:.4f} ms, bound {k2_bound[0]:.5f} ms) | K2 "
           f"full @65536 {k2_full_ms:.4f} ms | K2 1024 targets x 65536 "
           f"{k2_or_ms:.4f} ms (plain {k2_or_plain:.3f} ms) | steps/s @65536,"
           f" 25-step CLI run: brute-pallas {steps['brute-pallas']} "
@@ -293,11 +362,12 @@ def main() -> int:
                                   device=dev)
         return st, params
 
-    def walk_calls(n):
-        """One bh force call at the CLI's configuration for n, recording
-        the kernel wrappers' arguments: the slabs the walk assembles."""
+    def walk_calls(n, **over):
+        """One bh force call at the CLI's configuration for n (with the
+        BHConfig fields ``over``), recording the kernel wrappers' arguments:
+        the slabs the walk assembles."""
         st, params = bh_state(n)
-        calls = {"group_force": [], "quad_force": []}
+        calls = {"group_force": [], "quad_force": [], "group_self_force": []}
         orig = {k: getattr(gf, k) for k in calls}
 
         def spy(name):
@@ -311,7 +381,7 @@ def main() -> int:
                 setattr(gf, k, spy(k))
             bh_accel(st.pos, st.effective_mass(), params.bounds,
                      params.theta2, params.g, params.g_soft,
-                     BHConfig.auto_for(st.capacity))
+                     BHConfig.auto_for(st.capacity, **over))
         finally:
             for k, fn in orig.items():
                 setattr(gf, k, fn)
@@ -509,15 +579,38 @@ def main() -> int:
     print("[9 bh main path] " + " | ".join(parts), flush=True)
 
     # -- 10. times ----------------------------------------------------------
+    def k3_bound(tgt8, slab, tile, mask):
+        """K3 needs each target against each massive slab row outside the
+        source tiles its mask entry skips."""
+        Gs, B = tgt8.shape[:2]
+        S = slab.shape[1]
+        nz = (slab[..., 3] != 0).reshape(Gs, S // tile, tile).sum(-1)
+        if mask is None:
+            pairs = B * int(nz.sum())
+        else:
+            pairs = (B // mask.shape[1]) * int(
+                ((~mask.bool()).to(nz.dtype) * nz[:, None, :]).sum())
+        return bound(pairs, OPS["pair"],
+                     Gs * B * 24 + Gs * S * 16
+                     + (0 if mask is None else mask.numel()))
+
+    def k4_bound(tgt8, qslab):
+        Gs, B = tgt8.shape[:2]
+        return bound(B * nnz(qslab[..., 3]), OPS["quad"],
+                     Gs * B * 24 + qslab.shape[1] * Gs * 40)
+
     a, k = calls_1m["group_force"][0]
     k3_ms, k3_plain = pair(lambda: gf.group_force(*a, **k),
                            lambda: gf.group_force_plain(*a, **k), 10, 1)
+    k3_bnd = k3_bound(a[0], a[1], k["tile"], k["mask"])
     a, k = calls_100k["group_force"][0]
     k3m_ms, k3m_plain = pair(lambda: gf.group_force(*a, **k),
                              lambda: gf.group_force_plain(*a, **k), 20, 2)
+    k3m_bnd = k3_bound(a[0], a[1], k["tile"], k["mask"])
     a, k = calls_1m["quad_force"][0]
     k4_ms, k4_plain = pair(lambda: gf.quad_force(*a, **k),
                            lambda: gf.quad_force_plain(*a, **k), 10, 1)
+    k4_bnd = k4_bound(a[0], a[1])
     a, k = calls_100k["quad_force"][0]
     k4d_ms, k4d_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
@@ -525,62 +618,401 @@ def main() -> int:
     k4a_ms, k4a_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
 
-    # one 1M force call, split at the phase marks with CUDA events
-    st, params = bh_state(1048575)
-    cfg = BHConfig.auto_for(st.capacity)
-    m_eff = st.effective_mass()
-    split = {}
-    for _ in range(2):  # the second call is the one kept
-        events = []
+    def force_split(n, **over):
+        """One bh force call at n, split at the phase marks with CUDA
+        events (ms); the second of two calls is the one kept."""
+        st, params = bh_state(n)
+        cfg = BHConfig.auto_for(st.capacity, **over)
+        m_eff = st.effective_mass()
+        for _ in range(2):
+            events = []
 
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
+            def mark(name, events=events):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
 
-        mark("start")
-        bh_accel(st.pos, m_eff, params.bounds, params.theta2, params.g,
-                 params.g_soft, cfg, mark=mark)
-        torch.cuda.synchronize()
-        split = {name: round(events[i - 1][1].elapsed_time(ev), 3)
-                 for i, (name, ev) in enumerate(events) if i}
-    split["total"] = round(sum(split.values()), 3)
+            mark("start")
+            bh_accel(st.pos, m_eff, params.bounds, params.theta2, params.g,
+                     params.g_soft, cfg, mark=mark)
+            torch.cuda.synchronize()
+            split = {name: round(events[i - 1][1].elapsed_time(ev), 3)
+                     for i, (name, ev) in enumerate(events) if i}
+        split["total"] = round(sum(split.values()), 3)
+        return split
+
+    split = force_split(1048575)
     smi = nvidia_smi()
     print(f"[10 times] {smi} | K3 unmasked @1M shapes {shape_1m}: "
-          f"{k3_ms:.3f} ms (plain {k3_plain:.1f} ms) | K3 masked @100k "
-          f"shapes: {k3m_ms:.3f} ms (plain {k3m_plain:.1f} ms) | K4 @1M "
-          f"accepted nodes: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms) | K4 "
+          f"{k3_ms:.3f} ms (plain {k3_plain:.1f} ms, bound {k3_bnd[0]:.3f} "
+          f"ms) | K3 masked @100k shapes: {k3m_ms:.3f} ms (plain "
+          f"{k3m_plain:.1f} ms, bound {k3m_bnd[0]:.4f} ms) | K4 @1M "
+          f"accepted nodes: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, bound "
+          f"{k4_bnd[0]:.3f} ms) | K4 "
           f"@100k dual rows: {k4d_ms:.4f} ms (plain {k4d_plain:.2f} ms), "
           f"accepted nodes: {k4a_ms:.3f} ms (plain {k4a_plain:.1f} ms) | "
           f"steps/s: 100k {bh_results['100k']['steps_per_second']:.3f}, 1M "
           f"{bh_results['1M']['steps_per_second']:.3f} | one 1M force call "
           f"(ms): {json.dumps(split)}", flush=True)
 
+    # -- 11. K5 -------------------------------------------------------------
+    sym_over = dict(near_sym=True)
+    sym_1m = walk_calls(1048575, **sym_over)
+    sym_100k = walk_calls(100000, **sym_over)
+    for label, calls in (("1M", sym_1m), ("100k", sym_100k)):
+        require(len(calls["group_self_force"]) == 1,
+                f"the {label} near_sym walk made "
+                f"{len(calls['group_self_force'])} K5 calls")
+
+    def self_square_case(Gs, B, masked, seed):
+        """Hand-built groups (tests/torch_slabs.py): unit-scale rows, a
+        share ``masked`` of the source masses zeroed."""
+        rng = np.random.default_rng(seed)
+        t8 = np.zeros((Gs, B, 8), np.float32)
+        t8[..., :3] = rng.normal(scale=3.0, size=(Gs, B, 3))
+        t8[..., 3] = rng.uniform(0.5, 1.5, (Gs, B))
+        t8[..., 4] = np.arange(Gs * B).reshape(Gs, B)
+        ms_ = np.where(rng.uniform(size=(Gs, B)) >= masked, t8[..., 3], 0.0)
+        return t8, ms_.astype(np.float32)
+
+    def group_err(got, ref):
+        """rel_err group by group, the worst group: one wrong group cannot
+        hide among the rest, and the group holding the star (rows near it
+        pull many times the call's mean |a|) is measured against its own
+        scale."""
+        num = (got.double() - ref.double()).norm(dim=2).amax(dim=1)
+        den = ref.double().norm(dim=2).mean(dim=1).clamp_min(1e-300)
+        return float((num / den).max())
+
+    def k5_check(t8, msrc, g, g_soft, label, exact=False):
+        got = gf.group_self_force(t8, msrc, g, g_soft)
+        torch.cuda.synchronize()
+        ref = gf.group_self_force_plain(t8, msrc, g, g_soft)
+        require(bool(torch.isfinite(got).all()), f"K5 {label}: not finite")
+        e_grp = group_err(got, ref)
+        require(e_grp < 3e-5, f"K5 {label} vs plain, worst group: "
+                f"{e_grp:.3e}")
+        note = ""
+        if exact:
+            # both against the plain sum in float64: the kernel's error is
+            # of the f32 rounding class, like the twin's
+            ex = gf.group_self_force_plain(t8.double(), msrc.double(), g,
+                                           g_soft)
+            e64, p64 = group_err(got, ex), group_err(ref, ex)
+            require(e64 < 3e-5, f"K5 {label} vs float64, worst group: "
+                    f"{e64:.3e} (plain f32 {p64:.3e})")
+            note = f", vs float64 {e64:.2e} (plain f32 {p64:.2e})"
+        net = (got.double() * msrc[..., None]).sum(dim=1).abs().amax(dim=1)
+        scale = (got.double().abs() * msrc[..., None]).sum(dim=(1, 2))
+        mom = float((net / scale.clamp_min(1e-300)).max())
+        require(mom < 1e-5, f"K5 {label}: momentum {mom:.3e}")
+        require(torch.equal(got, gf.group_self_force(t8, msrc, g, g_soft)),
+                f"K5 {label}: two calls differ")
+        return e_grp, float((got - ref).abs().max()), mom, note
+
+    parts = []
+    for Gs, B, masked, g_soft in ((4, 2048, 0.3, EPS), (3, 1000, 0.0, EPS),
+                                  (2, 512, 0.2, 0.0)):
+        t8, ms_ = self_square_case(Gs, B, masked, seed=B)
+        if g_soft == 0.0:
+            t8[:, 100:110, :3] = t8[:, 50:51, :3]  # coincident rows
+        e, _, mom, _ = k5_check(torch.from_numpy(t8).to(dev),
+                                torch.from_numpy(ms_).to(dev), G, g_soft,
+                                f"{Gs}x{B} masked {masked} eps {g_soft}")
+        parts.append(f"{Gs}x{B} masked {masked} eps {g_soft}: {e:.2e} "
+                     f"(momentum {mom:.1e})")
+    k5_abs = None
+    for label, calls in (("1M", sym_1m), ("100k", sym_100k)):
+        # the whole call the walk made: every group, as the path gives it
+        a, _ = calls["group_self_force"][0]
+        e, err_abs, mom, note = k5_check(*a, f"{label} walk call",
+                                         exact=True)
+        k5_abs = err_abs if label == "1M" else k5_abs
+        parts.append(f"{label} walk call {tuple(a[0].shape)} ({nnz(a[1])} "
+                     f"of {a[1].numel()} weights set): {e:.2e}{note} "
+                     f"(momentum {mom:.1e})")
+    print("[11 K5] rel err vs plain, worst group: " + "; ".join(parts)
+          + "; every check's two calls bitwise equal", flush=True)
+
+    # -- 12. K6 -------------------------------------------------------------
+    def sorted_disc(n, capacity):
+        """The CLI's disc (seed 0) in the order brute-pallas-mxu gives K6."""
+        p_, v_, m_ = self_gravitating_disc(n, seed=0)
+        st = ParticleState.create(p_, v_, m_, capacity=capacity, device=dev)
+        params = SimParams.create(dt=3e-2, g_soft=EPS, device=dev)
+        me = st.effective_mass()
+        order = pw.mxu_order(st.pos, me, params.bounds)
+        return st.pos[order].contiguous(), me[order].contiguous()
+
+    parts = []
+    for n, cap in ((2047, 2048), (65535, 65536)):
+        ps, ms_ = sorted_disc(n, cap)
+        got = pw.pairwise_acc_mxu(ps, ms_, G, EPS)
+        torch.cuda.synchronize()
+        ref = pw.pairwise_acc_mxu_plain(ps, ms_, G, EPS)
+        require(bool(torch.isfinite(got).all()), f"K6 at {cap}: not finite")
+        e = rel_err(got, ref)
+        rn = ref.norm(dim=1)
+        med = float(((got - ref).norm(dim=1)
+                     / rn.clamp_min(float(rn.median()))).median())
+        # the kernel forms r^2 with the twin's roundings (csrc/
+        # pairwise_mxu.cu); what differs is the summation order, which the
+        # fold A - (p - c) sum s magnifies far from the anchor
+        require(e < 1e-3 and med < 1e-5,
+                f"K6 vs plain at {cap}: {e:.3e} (median row {med:.2e})")
+        require(torch.equal(got, pw.pairwise_acc_mxu(ps, ms_, G, EPS)),
+                f"K6 at {cap}: two calls differ")
+        if cap == 65536:
+            k6_abs = float((got - ref).abs().max())
+            k6_in = (ps, ms_)
+        parts.append(f"{cap}: {e:.3e} (median row {med:.2e})")
+    print("[12 K6] rel err vs plain on the sorted disc, tiles "
+          f"{pw.mxu_tiles(65536)}: " + "; ".join(parts)
+          + "; two calls bitwise equal", flush=True)
+
+    # -- 13. the near_sym path -----------------------------------------------
+    def sim_run(n, steps, opts, energy=False):
+        """A bh Simulation of the disc at n + the star on the card, at the
+        CLI's settings: one warm run, then the timed run of ``steps`` from
+        the same state (as the CLI times).  Returns (sim, steps/s, drift or
+        None)."""
+        p_, v_, m_ = self_gravitating_disc(n, seed=0)
+        sim = Simulation(p_, v_, m_, engine="bh", engine_options=opts,
+                         device="cuda", dt=3e-2, g_soft=EPS, theta2=1.0)
+        e0 = sim.energy(method="exact") if energy else None
+        sim.run(steps)
+        sim.block_until_ready()
+        sim.reset()
+        t0 = time.perf_counter()
+        sim.run(steps)
+        sim.block_until_ready()
+        rate = steps / (time.perf_counter() - t0)
+        drift = (abs((sim.energy(method="exact") - e0) / e0) if energy
+                 else None)
+        return sim, rate, drift
+
+    sym_launches, parts = {}, []
+    for label, n, steps, energy in (("1M", 1048575, 10, False),
+                                    ("100k", 100000, 100, True)):
+        gf.reset_launch_counts()
+        sim, rate, drift = sim_run(n, steps, sym_over, energy)
+        counts = gf.launch_counts()
+        sym_launches[label] = counts
+        require(counts["group_self_force"] >= steps,
+                f"{label} near_sym: K5 launched {counts}")
+        if energy:
+            require(drift < 1e-3, f"{label} near_sym drift {drift:.3e}")
+        st, params = sim.state, sim.settings
+        require(bool(torch.isfinite(st.pos).all()
+                     & torch.isfinite(st.vel).all()),
+                f"{label} near_sym: final state is not finite")
+        m_eff = st.effective_mass()
+        args = (st.pos, m_eff, params.bounds, params.theta2, params.g,
+                params.g_soft)
+        acc, stats = bh_accel(*args, BHConfig.auto_for(st.capacity,
+                                                       **sym_over))
+        acc2, _ = bh_accel(*args, BHConfig.auto_for(st.capacity, **sym_over))
+        base, bstats = bh_accel(*args, BHConfig.auto_for(st.capacity))
+        require(torch.equal(acc, acc2), f"{label} near_sym: two calls differ")
+        four = {k: int(stats[k]) for k in ("accept_dropped",
+                                           "frontier_fallback",
+                                           "near_fallback", "fb_spill")}
+        bfour = {k: int(bstats[k]) for k in four}
+        require(four == bfour, f"{label} near_sym walk {four} vs bh {bfour}")
+        require(four["accept_dropped"] == 0, f"{label}: walk stats {four}")
+        alive = st.alive
+        rn = base.norm(dim=1)
+        rel = ((acc - base).norm(dim=1) / rn.clamp_min(1e-30))[alive]
+        rel_med, rel_max = float(rel.median()), float(rel.max())
+        # tests/test_near_sym.py:64-65: the same force set in another f32
+        # summation order; the worst row cancels, so its bound is looser
+        require(rel_med < 1e-5 and rel_max < 5e-3,
+                f"{label} near_sym vs bh: median rel {rel_med:.3e}, max "
+                f"{rel_max:.3e}")
+        alive_idx = np.nonzero(alive.cpu().numpy())[0]
+        rows = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+            alive_idx, 4096, replace=False)), device=dev)
+        oracle = pw.pairwise_acc_targets(st.pos[rows], st.pos, m_eff, G, EPS)
+        on = oracle.norm(dim=1)
+        err = ((acc[rows] - oracle).norm(dim=1)
+               / torch.clamp(on, min=float(on.median()))).cpu().numpy()
+        med, p99 = float(np.median(err)), float(np.percentile(err, 99))
+        require(med < median_bound[label] and p99 < 5e-2,
+                f"{label} near_sym: sampled force error median {med:.3e}, "
+                f"p99 {p99:.3e}")
+        drift_s = f", drift {drift:.3e}" if energy else ""
+        parts.append(
+            f"{label} ({n} + star, {steps} steps, capacity {st.capacity}): "
+            f"launches {counts}, {rate:.2f} steps/s{drift_s}; final state: "
+            f"walk {four} = bh's, vs bh median rel {rel_med:.2e} (max "
+            f"{rel_max:.2e}), vs K2 oracle (4096 rows) median "
+            f"{med:.3e} p99 {p99:.3e}, two calls bitwise equal")
+    print("[13 near_sym path] " + " | ".join(parts), flush=True)
+
+    # -- 14. the brute-pallas-mxu path --------------------------------------
+    # tests/torch_mxu_bound.py: the JAX kernel on this run's disc and on the
+    # disc after 25 steps (of the JAX package's brute engine), 1024 sampled
+    # rows against a float64 direct sum.  The port's kernel rounds in its
+    # own way (its twin reads 0.9-1.7x the JAX kernel's error on the 2048
+    # disc) and its 25-step state differs from JAX's by f32 rounding, so
+    # each figure, taken against the same float64 sum, is held to 4x the
+    # JAX kernel's.  The K2 oracle (an f32 sum) is printed beside it.
+    jax_mxu = {0: {"max_row": 2.5493e-4, "median": 7.1731e-7,
+                   "p99": 2.5246e-5},
+               25: {"max_row": 5.9030e-5, "median": 6.9718e-7,
+                    "p99": 1.4891e-5}}
+    mxu_bound = {k: {q: 4 * v for q, v in d.items()} for k, d in
+                 jax_mxu.items()}
+
+    def force_errors(got, ref):
+        """max-row |d| / mean-row |ref|, and the median and p99 of
+        |d| / max(|ref|, median |ref|) per row."""
+        rn = ref.norm(dim=1)
+        err = ((got - ref).norm(dim=1)
+               / torch.clamp(rn, min=float(rn.median()))).cpu().numpy()
+        return {"max_row": rel_err(got, ref), "median": float(np.median(err)),
+                "p99": float(np.percentile(err, 99))}
+
+    def mxu_errors(sim):
+        """K6's forces on the sim's state, on the bound script's 1024
+        sampled alive rows, against a float64 direct sum; and the K2
+        oracle's against the same sum."""
+        sim.update_forces()
+        st = sim.state
+        alive_idx = np.nonzero(st.alive.cpu().numpy())[0]
+        rows = torch.as_tensor(np.random.default_rng(0).choice(
+            alive_idx, 1024, replace=False), device=dev)
+        m_eff = st.effective_mass()
+        exact = pw.pairwise_acc_targets_plain(
+            st.pos[rows].double(), st.pos.double(), m_eff.double(), G,
+            float(np.float32(EPS)), tile=256)
+        oracle = pw.pairwise_acc_targets(st.pos[rows], st.pos, m_eff, G, EPS)
+        return (force_errors(st.acc[rows].double(), exact),
+                force_errors(st.acc[rows], oracle),
+                force_errors(oracle.double(), exact))
+
+    ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                           dir=_build.BUILD_DIR)
+    ckpt = os.path.join(ckpt_dir.name, "state.pkl")
+    pw.reset_launch_counts()
+    mxu = cli.main(["-n", "65535", "--engine", "brute-pallas-mxu", "--steps",
+                    "25", "--energy", "--energy-exact", "--json", "--device",
+                    "cuda", "--save", ckpt])
+    mxu_launches = pw.launch_counts()
+    require(mxu_launches["pairwise_acc_mxu"] >= 25,
+            f"the mxu run launched {mxu_launches}")
+    nums = [v for v in mxu.values() if isinstance(v, float)]
+    require(all(map(math.isfinite, nums)), f"non-finite result {mxu}")
+    require(mxu["energy_drift"] < 1e-5,
+            f"mxu energy drift {mxu['energy_drift']:.3e}")
+    p_, v_, m_ = self_gravitating_disc(65535, seed=0)
+    parts = []
+    for k in (0, 25):
+        sim = Simulation(p_, v_, m_, engine="brute-pallas-mxu",
+                         device="cuda", dt=3e-2, g_soft=EPS)
+        if k:
+            sim.load(ckpt)
+        got_err, vs_k2, k2_err = mxu_errors(sim)
+        require(all(got_err[q] < mxu_bound[k][q] for q in got_err),
+                f"mxu forces after {k} steps vs float64 {got_err}, bound "
+                f"{mxu_bound[k]}")
+        fmt = lambda d: ", ".join(f"{q} {v:.3e}" for q, v in d.items())
+        parts.append(
+            f"after {k} steps vs float64: " + ", ".join(
+                f"{q} {v:.3e} (JAX {jax_mxu[k][q]:.3e})"
+                for q, v in got_err.items())
+            + f"; vs K2 oracle: {fmt(vs_k2)}; K2 vs float64: {fmt(k2_err)}")
+    ckpt_dir.cleanup()
+    print(f"[14 mxu path] n 65536, 25 steps: K6 launched "
+          f"{mxu_launches['pairwise_acc_mxu']}x, "
+          f"{mxu['steps_per_second']:.2f} steps/s, drift "
+          f"{mxu['energy_drift']:.3e}, n_alive {mxu['n_alive']}; forces on "
+          "1024 rows (bound 4x JAX's): " + " | ".join(parts), flush=True)
+
+    # -- 15. times ----------------------------------------------------------
+    def k5_bound(tgt8, msrc):
+        """Each unordered pair with a massive member, once."""
+        Gs, B = msrc.shape
+        ng = (msrc != 0).sum(dim=1).double()
+        pairs = float((ng * (ng - 1) / 2 + ng * (B - ng)).sum())
+        return bound(pairs, OPS["sym"], Gs * B * 28)
+
+    a, _ = sym_1m["group_self_force"][0]
+    k5_ms, k5_plain = pair(lambda: gf.group_self_force(*a),
+                           lambda: gf.group_self_force_plain(*a), 10, 1)
+    k5_bnd = k5_bound(a[0], a[1])
+    shape_k5 = tuple(a[0].shape)
+    a, _ = sym_100k["group_self_force"][0]
+    k5s_ms, k5s_plain = pair(lambda: gf.group_self_force(*a),
+                             lambda: gf.group_self_force_plain(*a), 20, 2)
+    k5s_bnd = k5_bound(a[0], a[1])
+    a, k = sym_1m["group_force"][0]
+    k3s_ms, k3s_plain = pair(lambda: gf.group_force(*a, **k),
+                             lambda: gf.group_force_plain(*a, **k), 20, 2)
+    k3s_bnd = k3_bound(a[0], a[1], k["tile"], k["mask"])
+    shape_k3s = f"{tuple(a[0].shape)} x {tuple(a[1].shape)}"
+    ps, ms_ = k6_in
+    k6_ms, k6_plain = pair(lambda: pw.pairwise_acc_mxu(ps, ms_, G, EPS),
+                           lambda: pw.pairwise_acc_mxu_plain(ps, ms_, G, EPS),
+                           20, 1)
+    k6_bnd = bound(ps.shape[0] * nnz(ms_), OPS["mxu"], 28 * ps.shape[0])
+    rates = {}
+    for label, n, steps in (("1M", 1048575, 10), ("100k", 100000, 100)):
+        for opts in ({}, sym_over, sym_over, {}):
+            _, rate, _ = sim_run(n, steps, opts)
+            rates.setdefault((label, bool(opts)), []).append(rate)
+    split_sym = force_split(1048575, **sym_over)
+    smi = nvidia_smi()
+    rate_s = " | ".join(
+        f"{label}: bh {[round(r, 3) for r in rates[(label, False)]]}, "
+        f"near_sym {[round(r, 3) for r in rates[(label, True)]]}"
+        for label in ("1M", "100k"))
+    print(f"[15 times] {smi} | K5 @1M shapes {shape_k5}: {k5_ms:.3f} ms "
+          f"(plain {k5_plain:.1f} ms, bound {k5_bnd[0]:.3f} ms) | K5 @100k "
+          f"shapes: {k5s_ms:.3f} ms (plain {k5s_plain:.1f} ms, bound "
+          f"{k5s_bnd[0]:.3f} ms) | K3 on the 1M near_sym slab {shape_k3s}: "
+          f"{k3s_ms:.3f} ms (plain {k3s_plain:.1f} ms, bound "
+          f"{k3s_bnd[0]:.3f} ms) | K6 @65536: {k6_ms:.4f} ms (plain "
+          f"{k6_plain:.1f} ms, bound {k6_bnd[0]:.4f} ms) | steps/s (bh, "
+          f"near_sym, near_sym, bh): {rate_s} | one 1M near_sym force call "
+          f"(ms): {json.dumps(split_sym)}", flush=True)
+
     k4_launches = sum(c["quad_force"] for c in bh_launches.values())
+    def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
+        # no single PyTorch call computes a softened-gravity sum
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     kernels = [
-        {"name": "K1 pairwise_acc_sym", "route": "cuda", "source": SOURCE,
-         "replaces": "nbody_tpu/ops/pairwise.py:280",
-         "launches": launches["pairwise_acc_sym"], "max_abs_err": k1_abs,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "K2 pairwise_acc_targets", "route": "cuda", "source": SOURCE,
-         "replaces": "nbody_tpu/ops/pairwise.py:86",
-         "launches": launches["pairwise_acc_targets"], "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "K3 group_force (unmasked, 1M shapes)", "route": "cuda",
-         "source": SOURCE_BH, "replaces": "nbody_tpu/ops/group_force.py:423",
-         "launches": bh_launches["1M"]["group_force"]
-         + bh_launches["100k"]["group_force"], "max_abs_err": k3_abs,
-         "ms": k3_ms, "plain_ms": k3_plain},
-        {"name": "K3 group_force (block-dual masked, 100k shapes)",
-         "route": "cuda", "source": SOURCE_BH,
-         "replaces": "nbody_tpu/ops/group_force.py:423",
-         "launches": bh_launches["100k"]["group_force_masked"]
-         + bh_launches["1M"]["group_force_masked"], "max_abs_err": k3m_abs,
-         "ms": k3m_ms, "plain_ms": k3m_plain},
-        {"name": "K4 quad_force (1M accepted nodes)", "route": "cuda",
-         "source": SOURCE_BH, "replaces": "nbody_tpu/ops/group_force.py:362",
-         "launches": k4_launches, "max_abs_err": k4_abs, "ms": k4_ms,
-         "plain_ms": k4_plain},
+        entry("K1 pairwise_acc_sym", SOURCE, "nbody_tpu/ops/pairwise.py:280",
+              launches["pairwise_acc_sym"], k1_abs, k1_ms, k1_plain,
+              k1_bound),
+        entry("K2 pairwise_acc_targets", SOURCE,
+              "nbody_tpu/ops/pairwise.py:86", launches["pairwise_acc_targets"],
+              k2_abs, k2_ms, k2_plain, k2_bound),
+        entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
+              "nbody_tpu/ops/group_force.py:423",
+              bh_launches["1M"]["group_force"]
+              + bh_launches["100k"]["group_force"], k3_abs, k3_ms, k3_plain,
+              k3_bnd),
+        entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
+              "nbody_tpu/ops/group_force.py:423",
+              bh_launches["100k"]["group_force_masked"]
+              + bh_launches["1M"]["group_force_masked"], k3m_abs, k3m_ms,
+              k3m_plain, k3m_bnd),
+        entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
+              "nbody_tpu/ops/group_force.py:362", k4_launches, k4_abs, k4_ms,
+              k4_plain, k4_bnd),
+        entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
+              "nbody_tpu/ops/group_force.py:250",
+              sum(c["group_self_force"] for c in sym_launches.values()),
+              k5_abs, k5_ms, k5_plain, k5_bnd),
+        entry("K6 pairwise_acc_mxu (brute-pallas-mxu, N = 65536)",
+              SOURCE_MXU, "nbody_tpu/ops/pairwise.py:462",
+              mxu_launches["pairwise_acc_mxu"], k6_abs, k6_ms, k6_plain,
+              k6_bnd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -40,6 +40,22 @@
 //     column sum accumulated in registers.  The warps' column sums are then
 //     added in warp order through shared memory.
 //
+// K5  acc_sym_tiles_kernel<8> + sym_reduce_kernel, batched over groups,
+//     replace nbody_tpu/ops/group_force.py group_self_force_pallas
+//     (_self_kernel_sym): each Barnes-Hut group against ITSELF, each
+//     unordered pair once (BHConfig.near_sym).  The rows are the group's
+//     8-wide target rows (x, y, z, m, idx, 0, 0, 0) [G, B, 8] and the
+//     weights its window-masked source masses msrc [G, B], in both
+//     directions: the row sum of target i takes msrc[j], the mirrored column
+//     sum of source j takes msrc[i] (a masked particle still feels a covered
+//     one, through the covered one's column).  That is K1 on (rows, msrc)
+//     with a grid dimension over groups: blockIdx.y picks the group, whose
+//     rows, weights, [nt, B, 3] partial slots and outputs sit at fixed
+//     offsets.  The TPU kernel's band classification of 512 x 1024 tiles
+//     existed for its sequential grid and VMEM; here every group is K1's
+//     lower triangle of 128 x 128 tile pairs.  Scratch: G * B/128 * B * 3
+//     floats (0.8 GB at the 1M tier, G = 128, B = 8192).
+//
 // What bounds them on the card: not bytes.  A tile pair reads 4 KB and
 // performs 16384 pair evaluations.  K2 is bound by FP32 instruction
 // throughput (about 14 FP32 instructions a pair) beside the MUFU rsqrt (16
@@ -107,12 +123,22 @@ acc_targets_kernel(const float* __restrict__ pos_t, int k,
   }
 }
 
+// kStride: floats between two particles' rows in `pos` (3 for K1's [N, 3]
+// positions, 8 for K5's [G, B, 8] group rows).  blockIdx.y is the group
+// (always 0 for K1): group g's n rows, n weights and nt * n * 3 partial
+// floats follow group g - 1's.
+template <int kStride>
 __global__ void __launch_bounds__(kSymWarps * 32)
 acc_sym_tiles_kernel(const float* __restrict__ pos,
                      const float* __restrict__ mass, int n, float eps2,
                      float* __restrict__ partial) {
   __shared__ float4 src[kSymTile];                  // diagonal tiles
   __shared__ float colsum[kSymWarps][kSymTile][3];  // off-diagonal tiles
+  const size_t grp = blockIdx.y;
+  const size_t nt_all = (n + kSymTile - 1) / kSymTile;
+  pos += grp * n * kStride;
+  mass += grp * n;
+  partial += grp * nt_all * 3 * n;
 
   // blockIdx.x enumerates the lower triangle row by row: p = bi(bi+1)/2 + bj
   const long long p = blockIdx.x;
@@ -132,9 +158,9 @@ acc_sym_tiles_kernel(const float* __restrict__ pos,
   for (int r = 0; r < kSymRows; ++r) {
     row[r] = bi * kSymTile + (warp * kSymRows + r) * 32 + lane;
     const bool ok = row[r] < n;
-    xi[r] = ok ? pos[3 * row[r]] : 0.f;
-    yi[r] = ok ? pos[3 * row[r] + 1] : 0.f;
-    zi[r] = ok ? pos[3 * row[r] + 2] : 0.f;
+    xi[r] = ok ? pos[kStride * row[r]] : 0.f;
+    yi[r] = ok ? pos[kStride * row[r] + 1] : 0.f;
+    zi[r] = ok ? pos[kStride * row[r] + 2] : 0.f;
     mi[r] = ok ? mass[row[r]] : 0.f;
     ax[r] = ay[r] = az[r] = 0.f;
   }
@@ -143,8 +169,8 @@ acc_sym_tiles_kernel(const float* __restrict__ pos,
     // diagonal tile: every ordered pair of it is native here, one direction
     for (int t = threadIdx.x; t < kSymTile; t += kSymWarps * 32) {
       const int j = bj * kSymTile + t;
-      src[t] = j < n ? make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2],
-                                   mass[j])
+      src[t] = j < n ? make_float4(pos[kStride * j], pos[kStride * j + 1],
+                                   pos[kStride * j + 2], mass[j])
                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
@@ -165,9 +191,9 @@ acc_sym_tiles_kernel(const float* __restrict__ pos,
     for (int c = 0; c < kSymTile / 32; ++c) {
       const int j = bj * kSymTile + c * 32 + lane;
       const bool ok = j < n;
-      float xj = ok ? pos[3 * j] : 0.f;
-      float yj = ok ? pos[3 * j + 1] : 0.f;
-      float zj = ok ? pos[3 * j + 2] : 0.f;
+      float xj = ok ? pos[kStride * j] : 0.f;
+      float yj = ok ? pos[kStride * j + 1] : 0.f;
+      float zj = ok ? pos[kStride * j + 2] : 0.f;
       float mj = ok ? mass[j] : 0.f;
       float cx = 0.f, cy = 0.f, cz = 0.f;
 #pragma unroll 4
@@ -226,14 +252,42 @@ acc_sym_tiles_kernel(const float* __restrict__ pos,
   }
 }
 
+// blockIdx.y is the group, as in acc_sym_tiles_kernel.
 __global__ void sym_reduce_kernel(const float* __restrict__ partial, int n,
                                   int nt, float g, float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t slot = static_cast<size_t>(3) * n;
   if (e >= 3 * n) return;
+  partial += static_cast<size_t>(blockIdx.y) * nt * slot;
+  out += static_cast<size_t>(blockIdx.y) * slot;
   float s = 0.f;
   for (int b = 0; b < nt; ++b) s += partial[static_cast<size_t>(b) * slot + e];
   out[e] = s * g;
+}
+
+// K1 (kStride 3, one group) and K5 (kStride 8, G groups): the tile pairs,
+// then the ordered reduction of every particle's nt partials.
+template <int kStride>
+int launch_sym(const float* pos, const float* mass, int groups, int n,
+               float eps2, float g, float* partial, long long partial_len,
+               float* out, void* stream) {
+  if (n <= 0 || groups <= 0 || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long nt = (n + kSymTile - 1) / kSymTile;
+  if (groups * nt * 3 * n > partial_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long pairs = nt * (nt + 1) / 2;
+  acc_sym_tiles_kernel<kStride>
+      <<<dim3(static_cast<unsigned>(pairs), groups), kSymWarps * 32, 0, s>>>(
+          pos, mass, n, eps2, partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sym_reduce_kernel<<<dim3((3 * n + 255) / 256, groups), 256, 0, s>>>(
+      partial, n, static_cast<int>(nt), g, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -259,18 +313,17 @@ int nbody_sym_tile(void) { return kSymTile; }
 int nbody_acc_sym(const float* pos, const float* mass, int n, float eps2,
                   float g, float* partial, long long partial_len, float* out,
                   void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nt = (n + kSymTile - 1) / kSymTile;
-  if (nt * 3 * n > partial_len) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long pairs = nt * (nt + 1) / 2;
-  acc_sym_tiles_kernel<<<static_cast<unsigned>(pairs), kSymWarps * 32, 0, s>>>(
-      pos, mass, n, eps2, partial);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sym_reduce_kernel<<<(3 * n + 255) / 256, 256, 0, s>>>(
-      partial, n, static_cast<int>(nt), g, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sym<3>(pos, mass, 1, n, eps2, g, partial, partial_len, out,
+                       stream);
+}
+
+// K5: tgt8 [G, B, 8] rows, msrc [G, B] weights, partial [G, B/128, B, 3],
+// out [G, B, 3].
+int nbody_self_force(const float* tgt8, const float* msrc, int G, int B,
+                     float eps2, float g, float* partial,
+                     long long partial_len, float* out, void* stream) {
+  return launch_sym<8>(tgt8, msrc, G, B, eps2, g, partial, partial_len, out,
+                       stream);
 }
 
 const char* nbody_error_string(int code) {

@@ -20,7 +20,6 @@ ENGINES: dict = {}
 
 NOT_YET_PORTED = {
     "bh-lazy": "the off-main-path BH variants (ROADMAP.md, queue 1, item 16)",
-    "brute-pallas-mxu": "kernel K6 (ROADMAP.md, queue 2)",
 }
 
 
@@ -61,7 +60,7 @@ def get_engine(name, **options) -> Engine:
 
 # Import engine modules for their registration side effects.
 from nbody_tpu_torch.engines import brute_force as _bf  # noqa: E402,F401
-from nbody_tpu_torch.ops import pairwise as _pw  # noqa: E402,F401  (brute-pallas)
+from nbody_tpu_torch.ops import pairwise as _pw  # noqa: E402,F401  (brute-pallas*)
 from nbody_tpu_torch.engines import barnes_hut as _bh  # noqa: E402
 
 ENGINES["bh"] = _bh.bh_factory

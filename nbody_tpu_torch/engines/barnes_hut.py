@@ -1,14 +1,17 @@
 """Barnes-Hut octree engines (the counterpart of
 ``nbody_tpu/engines/barnes_hut.py``): a Morton-sorted dense level pyramid
 and a vectorized group walk (``ops/tree.py``, ``ops/traversal.py``), whose
-interaction sums run in the CUDA kernels K3 and K4 on the card.
+interaction sums run in the CUDA kernels K3 and K4 on the card (and K5 for
+each group's own square with ``near_sym=True``).
 
 Engine names:
   * ``bh``      -- leaf grid of depth 7 (the flagship engine)
   * ``bh-deep`` -- leaf grid of depth 8
 
 Options (``engine_options``): any ``BHConfig`` field, plus ``profile``
-('fast', 'accurate' or 'dense').  Without group_size / subgroups /
+('fast', 'accurate' or 'dense').  ``near_sym=True`` evaluates each group's
+own square once per unordered pair (the same force set, another summation
+order).  Fields of paths not ported yet raise, naming their ROADMAP item.  Without group_size / subgroups /
 chunk_groups the config follows the state's capacity
 (``BHConfig.auto_for``).  The opening angle theta^2 stays a runtime
 setting (``SimParams.theta2``).

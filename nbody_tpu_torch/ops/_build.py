@@ -126,6 +126,11 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_acc_targets.restype = i
     lib.nbody_acc_sym.argtypes = [p, p, i, f, f, p, ctypes.c_longlong, p, p]
     lib.nbody_acc_sym.restype = i
+    lib.nbody_self_force.argtypes = [p, p, i, i, f, f, p, ctypes.c_longlong,
+                                     p, p]
+    lib.nbody_self_force.restype = i
+    lib.nbody_acc_mxu.argtypes = [p, p, i, i, i, i, f, f, p, p]
+    lib.nbody_acc_mxu.restype = i
     lib.nbody_group_force.argtypes = [p, p, p, i, i, i, i, i, i, f, f, p, p]
     lib.nbody_group_force.restype = i
     lib.nbody_quad_force.argtypes = [p, p, i, i, i, f, f, p, p]

@@ -18,6 +18,13 @@ the JAX package's transposed [G, 8, S] slab existed for TPU lanes.
   * ``quad_force`` (K4): a = G [M e/r^3 - Q e/r^5 + 5/2 (eᵀQe) e/r^7] over
     traceless-quadrupole rows.  Kernel: ``csrc/group_force.cu``
     quad_force_kernel.
+  * ``group_self_force`` (K5, ``BHConfig.near_sym``): each group against
+    its own B rows, a_i = G sum_j msrc_j d_ij / (|d_ij|^2 + eps^2)^{3/2},
+    with msrc [G, B] the window-masked source masses.  The kernel evaluates
+    each unordered pair once and gives the mirrored term -msrc_i ir3 d_ij to
+    j: a masked particle (msrc = 0) still feels a covered one.  Kernel:
+    ``csrc/pairwise.cu`` acc_sym_tiles_kernel<8> + sym_reduce_kernel (K1's
+    tiles with a grid dimension over groups).
 
 No self-pair index test: a self or coincident pair has d = 0 and adds
 exactly 0 once r^2 == 0 is replaced by 1 (the guard is applied always; with
@@ -33,6 +40,8 @@ kernel; the masked and unmasked K3 launches are counted apart
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from nbody_tpu_torch.ops import _build
@@ -43,7 +52,8 @@ from nbody_tpu_torch.ops.pairwise import _eps2, _on_cpu, _stream
 _PLAIN_BLOCK_ELEMS = 1 << 26
 
 #: kernel launches per wrapper (reset_launch_counts zeroes them)
-LAUNCHES = {"group_force": 0, "group_force_masked": 0, "quad_force": 0}
+LAUNCHES = {"group_force": 0, "group_force_masked": 0, "quad_force": 0,
+            "group_self_force": 0}
 
 
 def fit_target_tile(B: int, tile: int, target_tile: int, cap: int) -> int:
@@ -145,6 +155,16 @@ def quad_force_plain(tgt8, qslab, g, g_soft, *, tile):
     return torch.cat(out) * g
 
 
+def group_self_force_plain(tgt8, msrc, g, g_soft):
+    """Plain torch K5: every group's rows against themselves with source
+    masses ``msrc``, i.e. K3's sum over a slab made of the group's own rows
+    carrying ``msrc`` (self-pairs add 0 through d = 0), one source tile of
+    up to 2048 rows at a time."""
+    B = tgt8.shape[1]
+    slab = torch.cat([tgt8[..., :3], msrc[..., None], tgt8[..., 4:]], dim=-1)
+    return group_force_plain(tgt8, slab, g, g_soft, tile=math.gcd(B, 2048))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -228,6 +248,37 @@ def quad_force(tgt8, qslab, g, g_soft, *, tile):
             _stream(tgt8.device))
     _build.check(lib, rc, "quad_force")
     LAUNCHES["quad_force"] += 1
+    return out
+
+
+def group_self_force(tgt8, msrc, g, g_soft):
+    """tgt8 [G, B, 8], msrc [G, B] -> acc [G, B, 3] (kernel K5): each
+    group's Newton-3 self square.  Deterministic run to run.  Scratch: a
+    [G, B/128, B, 3] float32 buffer of per-tile-pair partial sums (0.8 GB at
+    the 1M tier)."""
+    if tgt8.dim() != 3 or tgt8.shape[2] != 8:
+        raise ValueError(f"group_self_force: rows must be [G, B, 8], got "
+                         f"{tuple(tgt8.shape)}")
+    if tuple(msrc.shape) != tuple(tgt8.shape[:2]):
+        raise ValueError(f"group_self_force: msrc must be "
+                         f"{tuple(tgt8.shape[:2])}, got {tuple(msrc.shape)}")
+    if _on_cpu(tgt8, msrc):
+        return group_self_force_plain(tgt8, msrc, g, g_soft)
+    G, B, _ = tgt8.shape
+    out = torch.empty((G, B, 3), dtype=torch.float32, device=tgt8.device)
+    if G == 0 or B == 0:
+        return out
+    lib = _build.load_library()
+    nt = -(-B // lib.nbody_sym_tile())
+    partial = torch.empty((G, nt, B, 3), dtype=torch.float32,
+                          device=tgt8.device)
+    with torch.cuda.device(tgt8.device):
+        rc = lib.nbody_self_force(
+            tgt8.data_ptr(), msrc.data_ptr(), G, B,
+            _eps2(g_soft, torch.float32), float(g), partial.data_ptr(),
+            partial.numel(), out.data_ptr(), _stream(tgt8.device))
+    _build.check(lib, rc, "group_self_force")
+    LAUNCHES["group_self_force"] += 1
     return out
 
 

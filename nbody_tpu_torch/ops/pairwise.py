@@ -1,7 +1,8 @@
-"""All-pairs gravity: wrappers of the CUDA kernels K1 and K2, their plain
-torch twins, and the ``brute-pallas`` / ``brute-pallas-sym`` engines (the
-counterpart of ``nbody_tpu/ops/pairwise.py``; the engine names are kept so
-users and tests find them, though no Pallas runs here).
+"""All-pairs gravity: wrappers of the CUDA kernels K1, K2 and K6, their
+plain torch twins, and the ``brute-pallas`` / ``brute-pallas-sym`` /
+``brute-pallas-mxu`` engines (the counterpart of
+``nbody_tpu/ops/pairwise.py``; the engine names are kept so users and tests
+find them, though no Pallas runs here).
 
 Every function computes, for every target i (alive or not),
 
@@ -15,6 +16,10 @@ exactly 0 (d = 0, and r2 == 0 is replaced by 1 before the rsqrt).
   * ``pairwise_acc_sym`` (K1): the same sums with each unordered pair
     evaluated once (Newton's third law).  Kernel: ``csrc/pairwise.cu``
     acc_sym_tiles_kernel + sym_reduce_kernel.
+  * ``pairwise_acc_mxu`` (K6): the same sums with r^2 from the norm trick
+    about an anchor per (target tile, source tile) pair, on Morton-sorted
+    input (the ``brute-pallas-mxu`` engine sorts).  Kernel:
+    ``csrc/pairwise_mxu.cu`` acc_mxu_kernel.
 
 A wrapper given CPU tensors runs its plain twin (``*_plain``); given CUDA
 tensors it launches its kernel or raises.  There is no fallback from one to
@@ -23,6 +28,8 @@ launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,7 +55,7 @@ def _check_3d(*pos):
     for p in pos:
         if p.dim() != 2 or p.shape[1] != 3:
             raise ValueError(
-                f"brute-pallas supports 3D states only, got shape "
+                f"the brute-pallas engines support 3D states only, got shape "
                 f"{tuple(p.shape)}; use engine='brute' for 2D"
             )
 
@@ -114,6 +121,58 @@ def pairwise_acc_sym_plain(pos, mass, g, g_soft):
     return pairwise_acc_targets_plain(pos, pos, mass, g, g_soft)
 
 
+def mxu_tiles(n: int, tile_i: int = 512, tile_j: int = 1024):
+    """The anchor grid of K6: the JAX wrapper's shrink rule
+    (``nbody_tpu/ops/pairwise.py:472-477``).  Above 128 rows an N that is
+    not a multiple of 128 leaves the grid short of N there (its last rows
+    are never written, ROADMAP.md queue 3); here it raises."""
+    while tile_i > 128 and n % tile_i:
+        tile_i //= 2
+    while tile_j > 128 and n % tile_j:
+        tile_j //= 2
+    tile_i, tile_j = min(tile_i, n), min(tile_j, n)
+    if n % tile_i or n % tile_j:
+        raise ValueError(
+            f"brute-pallas-mxu needs N divisible by its tiles: N = {n} gives "
+            f"tiles ({tile_i}, {tile_j}); the JAX kernel leaves the last "
+            f"{n % tile_i} rows unwritten there.  Pad N to a multiple of 128")
+    return tile_i, tile_j
+
+
+def pairwise_acc_mxu_plain(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
+    """Plain torch K6: the TPU kernel's arithmetic per (target tile I,
+    source tile J), all target tiles at once for one J:
+        c = (p[I ti] + p[J tj]) / 2,  r^2 = n2_i + n2_j - 2 cross + eps^2,
+        skip j == i or r^2 <= 0,  s = m_j / r^3,
+        out_I += s @ (p_J - c) - (p_I - c) sum_j s
+    with the source tiles added in order.  r^2 is built from element-wise
+    ops (each rounded once), the sequence the kernel reproduces."""
+    _check_3d(pos)
+    n = pos.shape[0]
+    ti, tj = mxu_tiles(n, tile_i, tile_j)
+    eps2 = _eps2(g_soft, pos.dtype)
+    ni = n // ti
+    p_i = pos.reshape(ni, ti, 3)
+    rows = torch.arange(n, device=pos.device).reshape(ni, ti, 1)
+    out = torch.zeros_like(p_i)
+    for j0 in range(0, n, tj):
+        c = (pos[::ti] + pos[j0]) * 0.5  # [ni, 3]: each I's anchor with J
+        pc = p_i - c[:, None, :]  # [ni, ti, 3]
+        qc = pos[None, j0:j0 + tj, :] - c[:, None, :]  # [ni, tj, 3]
+        x, y, z = pc[..., 0:1], pc[..., 1:2], pc[..., 2:3]
+        u, v, w = qc[:, None, :, 0], qc[:, None, :, 1], qc[:, None, :, 2]
+        n2i = x * x + y * y + z * z
+        n2j = u * u + v * v + w * w
+        cross = x * u + y * v + z * w
+        r2 = n2i + n2j - 2.0 * cross + eps2  # [ni, ti, tj]
+        cols = torch.arange(j0, j0 + tj, device=pos.device)
+        skip = (rows == cols) | (r2 <= 0.0)
+        ir = torch.rsqrt(torch.where(skip, 1.0, r2))
+        s = torch.where(skip, 0.0, ir * ir * ir * mass[j0:j0 + tj])
+        out = out + (torch.bmm(s, qc) - pc * s.sum(dim=2, keepdim=True))
+    return out.reshape(n, 3) * g
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -171,9 +230,37 @@ def pairwise_acc_sym(pos, mass, g, g_soft):
     return out
 
 
+def pairwise_acc_mxu(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
+    """pos [N, 3], mass [N] (Morton-sorted by the caller) -> acc [N, 3]
+    (kernel K6): the norm-trick all-pairs sum on the anchor grid
+    ``mxu_tiles(N, tile_i, tile_j)``."""
+    _check_3d(pos)
+    n = pos.shape[0]
+    if tuple(mass.shape) != (n,):
+        raise ValueError(f"pairwise_acc_mxu: mass must be ({n},), got "
+                         f"{tuple(mass.shape)}")
+    ti, tj = mxu_tiles(n, tile_i, tile_j)
+    if _on_cpu(pos, mass):
+        return pairwise_acc_mxu_plain(pos, mass, g, g_soft, tile_i=ti,
+                                      tile_j=tj)
+    out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    # a block's rows lie in one target tile
+    rows = 128 if ti == n else math.gcd(ti, 128)
+    lib = _build.load_library()
+    with torch.cuda.device(pos.device):
+        rc = lib.nbody_acc_mxu(
+            pos.data_ptr(), mass.data_ptr(), n, ti, tj, rows,
+            _eps2(g_soft, torch.float32), float(g), out.data_ptr(),
+            _stream(pos.device))
+    _build.check(lib, rc, "pairwise_acc_mxu")
+    pairwise_acc_mxu.launches += 1
+    return out
+
+
 pairwise_acc_targets.launches = 0
 pairwise_acc_sym.launches = 0
-WRAPPERS = (pairwise_acc_sym, pairwise_acc_targets)
+pairwise_acc_mxu.launches = 0
+WRAPPERS = (pairwise_acc_sym, pairwise_acc_targets, pairwise_acc_mxu)
 
 
 def reset_launch_counts():
@@ -211,11 +298,45 @@ register(
     )
 )
 
+
+def mxu_order(pos, mass, bounds):
+    """The order in which ``brute-pallas-mxu`` hands particles to K6:
+    Morton codes at level 10 on the tree grid, dead (zero-mass) particles
+    last, ties in index order (the JAX engine's ``argsort``)."""
+    from nbody_tpu_torch.ops import morton
+    from nbody_tpu_torch.ops.tree import grid_bounds
+
+    codes = morton.cell_codes(pos, grid_bounds(bounds, 10), 10)
+    return torch.argsort(torch.where(mass > 0, codes, 1 << 30), stable=True)
+
+
+def _force_mxu(pos, mass, params: SimParams):
+    """Morton-sort (``mxu_order``), run K6 on the sorted particles, scatter
+    back: sorting keeps the tiles compact, so close pairs sit near their
+    anchor and the norm trick stays accurate."""
+    _check_3d(pos)
+    order = mxu_order(pos, mass, params.bounds)
+    acc_s = pairwise_acc_mxu(pos[order], mass[order], params.g,
+                             params.g_soft)
+    out = torch.empty_like(acc_s)
+    out[order] = acc_s
+    return out
+
+
 register(
     Engine(
         name="brute-pallas-sym",
         force=_force_sym,
         description="O(N^2) direct sum, Newton-3 symmetric CUDA kernel (K1; "
         "plain K2 above N = 262144)",
+    )
+)
+
+register(
+    Engine(
+        name="brute-pallas-mxu",
+        force=_force_mxu,
+        description="O(N^2) direct sum, norm-trick CUDA kernel (K6) on "
+        "Morton-sorted particles, r^2 about per-tile-pair anchors",
     )
 )

@@ -16,7 +16,9 @@ breadth-first theta walk over the dense level pyramid:
     a self-excluded fallback slab;
   * one pass then evaluates every group against its assembled slab: the
     hand-written CUDA kernels K3 (pair rows, with the block-dual mask) and
-    K4 (quadrupole rows) on the card, ``ops/group_force.py``.
+    K4 (quadrupole rows) on the card, ``ops/group_force.py``; with
+    ``near_sym`` the group's own square leaves the slab for K5, which
+    evaluates each of its unordered pairs once.
 
 All groups are walked at once (a leading G axis where the JAX package used
 ``vmap`` + ``lax.map``), with fixed caps, cumsum + scatter compaction and a
@@ -167,8 +169,7 @@ class BHConfig:
         if self.refine_levels:
             _unported("refine_levels > 0 (density-adaptive refinement)",
                       ROADMAP_ADAPTIVE)
-        for name, on in (("near_sym (kernel K5)", self.near_sym),
-                         ("sliding_window", self.sliding_window),
+        for name, on in (("sliding_window", self.sliding_window),
                          ("delta_onepass", self.delta_onepass)):
             if on:
                 _unported(name, ROADMAP_OPT_IN)
@@ -854,6 +855,44 @@ def _dual_slab_eval(slab, tgt8, center, theta2, g, eps2, g_soft,
     return acc, n_dual
 
 
+def _self_square_eval(tgt8, mcen, g, eps2, g_soft, cfg: BHConfig, mode):
+    """Each group against itself with window-masked source masses ``mcen``
+    [G, B] (``BHConfig.near_sym``): K5 (``gf.group_self_force``, each
+    unordered pair once) in 'pallas' mode; in 'xla' mode a maskless d-form
+    pair block chunked over groups (self-pairs add 0 through d = 0, masked
+    sources through m = 0)."""
+    if mode == "pallas":
+        return gf.group_self_force(tgt8, mcen, g, g_soft)
+    pb = _resolve_p_block(cfg)
+    starts, cg = _chunks(tgt8.shape[0], cfg)
+    return torch.cat([
+        _pair_block(t8[..., :3], None, t8[..., :3], mc, None, mc != 0.0, g,
+                    eps2, p_block=pb)
+        for t8, mc in ((tgt8[s:s + cg], mcen[s:s + cg]) for s in starts)])
+
+
+def _split_window(pmass8, tgt8, wstart, wmask, W: int):
+    """``near_sym`` assembly: the window minus the group's own B rows.
+    The group sits at columns [off, off + B) of its window, off = group
+    start - wstart (in [0, W - B] by the window clamp).  Returns the rim
+    rows [G, W - B, 8] (masses under the window mask) and the group's own
+    masses under the same mask, ``mcen`` [G, B], the weights of the self
+    square."""
+    G, B, _ = tgt8.shape
+    dev = tgt8.device
+    off = (torch.arange(G, device=dev) * B - wstart).to(torch.int32)
+    k = torch.arange(W - B, dtype=torch.int32, device=dev)[None, :]
+    rimrel = (k + B * (k >= off[:, None])).long()  # [G, W - B]
+    rrows = pmass8[wstart[:, None].long() + rimrel]
+    rmask = torch.gather(wmask, 1, rimrel)
+    rrows = torch.cat([rrows[..., :3],
+                       torch.where(rmask, rrows[..., 3], 0.0)[..., None],
+                       rrows[..., 4:]], dim=-1)
+    cen = off[:, None].long() + torch.arange(B, device=dev)[None, :]
+    mcen = torch.where(torch.gather(wmask, 1, cen), tgt8[..., 3], 0.0)
+    return rrows, mcen
+
+
 def _window_rows(pmass8, wstart, wmask, W: int):
     """The [G, W, 8] sorted-neighbour window rows at each group's clamped
     start, masses zeroed outside the covered cells."""
@@ -867,14 +906,19 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
                    g, eps2, g_soft, cfg: BHConfig, W: int, mode, mark):
     """Slab assembly + force eval: window rows + near gather (+ the
     multipole slab for monopole runs) -> one pair pass with the block-dual
-    far field (K3, K4 on the dual rows), the accepted nodes' quadrupoles
-    (K4) and the fallback term.  Returns (acc [G, B, 3] in sorted-group
-    order, n_dual, slab_fill)."""
+    far field (K3, K4 on the dual rows), the group's own square (K5, with
+    ``near_sym``: the window rows are then the rim only), the accepted
+    nodes' quadrupoles (K4) and the fallback term.  Returns (acc [G, B, 3]
+    in sorted-group order, n_dual, slab_fill)."""
     nrows = pmass8[pidx.long()]
     nrows = torch.cat([nrows[..., :3],
                        torch.where(pvalid, nrows[..., 3], 0.0)[..., None],
                        nrows[..., 4:]], dim=-1)
-    wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
+    if cfg.near_sym:
+        wrows, mcen = _split_window(pmass8, tgt8, walk["wstart"],
+                                    walk["wmask"], W)
+    else:
+        wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
     if cfg.multipole == "quad":
         # particle rows through K3; accepted nodes through K4
         slab = torch.cat([wrows, nrows], dim=1)
@@ -882,6 +926,9 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
         slab = torch.cat([wrows, nrows, walk["mono"]], dim=1)
     acc, n_dual = _dual_slab_eval(slab, tgt8, walk["center"], theta2, g,
                                   eps2, g_soft, cfg, mode, mark)
+    if cfg.near_sym:
+        acc = acc + _self_square_eval(tgt8, mcen, g, eps2, g_soft, cfg, mode)
+        mark("K5")
     if cfg.multipole == "quad":
         qslab = _quad_slab(walk["mono"], tree.all_quad, cfg.max_level)
         acc = acc + _quad_eval(qslab, tgt8, g, eps2, g_soft, cfg, mode)

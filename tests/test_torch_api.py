@@ -97,7 +97,8 @@ def test_set_settings_live():
                                 dict(engine="bh",
                                      engine_options=dict(profile="adaptive")),
                                 dict(engine="bh-lazy"),
-                                dict(engine="brute-pallas-mxu")])
+                                dict(engine="bh", engine_options=dict(
+                                    sliding_window=True))])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make(50, **kw)

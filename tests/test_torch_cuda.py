@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K4 against their plain torch twins on the card, and
-the bh engine on the card against the CPU path.
+"""The CUDA kernels K1-K6 against their plain torch twins on the card, and
+the bh (with and without near_sym) and brute-pallas-mxu engines on the card
+against the CPU path.
 
 Marked ``cuda``: they need an NVIDIA GPU (sm_90a) and nvcc, and skip
 without them.  Run them on the card with
@@ -17,7 +18,8 @@ from nbody_tpu_torch.ops import group_force as gf
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.scenes import self_gravitating_disc
-from torch_slabs import cluster_quad_case, quad_case, species_slab
+from torch_slabs import (cluster_quad_case, quad_case, self_square_case,
+                         species_slab)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,7 +97,8 @@ def test_launch_counts(dev):
     pw.pairwise_acc_targets(pos[:10], pos, m, G, EPS)
     pw.pairwise_acc_plain(pos, m, G, EPS)
     assert pw.launch_counts() == {"pairwise_acc_sym": 1,
-                                  "pairwise_acc_targets": 1}
+                                  "pairwise_acc_targets": 1,
+                                  "pairwise_acc_mxu": 0}
 
 
 @pytest.mark.parametrize("n", [999, 4999])
@@ -201,3 +204,101 @@ def test_bh_on_card_matches_cpu(dev):
     with pytest.raises(TypeError, match="float32"):
         Simulation(pos, vel, mass, device="cuda", dtype=torch.float64,
                    **kw).update_forces()
+
+
+@pytest.mark.parametrize("B,masked,g_soft", [(2048, 0.3, EPS), (1000, 0.0, EPS),
+                                             (512, 0.2, 0.0)])
+def test_k5_matches_plain(dev, B, masked, g_soft):
+    """Masked source masses, a B that is not a multiple of the 128-row
+    tile, and eps = 0 with coincident rows; momentum within each group;
+    two calls bitwise equal."""
+    tgt8, msrc = self_square_case(G=3, B=B, masked=masked)
+    if g_soft == 0.0:
+        tgt8[:, 100:110, :3] = tgt8[:, 50:51, :3]
+    t, m = torch.from_numpy(tgt8).to(dev), torch.from_numpy(msrc).to(dev)
+    got = gf.group_self_force(t, m, G, g_soft)
+    torch.cuda.synchronize()
+    ref = gf.group_self_force_plain(t, m, G, g_soft)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got.reshape(-1, 3), ref.reshape(-1, 3)) < 3e-5
+    net = (got.double() * m[..., None]).sum(dim=1).abs().amax(dim=1)
+    scale = (got.double().abs() * m[..., None]).sum(dim=(1, 2))
+    assert bool((net < 1e-6 * scale).all())
+    assert torch.equal(got, gf.group_self_force(t, m, G, g_soft))
+
+
+def _sorted_disc(n, capacity, kill, dev):
+    """The disc sorted by the brute-pallas-mxu engine's own order."""
+    from nbody_tpu_torch.core.state import SimParams
+
+    pos, m, _ = _disc(n, capacity, kill, dev)
+    params = SimParams.create(bounds_width=10.0, device=dev)
+    order = pw.mxu_order(pos, m, params.bounds)
+    return pos[order].contiguous(), m[order].contiguous()
+
+
+@pytest.mark.parametrize("n,cap,kill,tiles", [
+    (2047, 2048, 0, (512, 1024)), (2047, 2048, 37, (128, 128)),
+    (99, 100, 0, (512, 1024)), (4095, 4096, 0, (64, 1024))])
+def test_k6_matches_plain(dev, n, cap, kill, tiles):
+    """The kernel forms r^2 with the twin's roundings, so the two differ
+    only in summation order, which the fold A - (p - c) sum s magnifies in
+    the rows far from their anchor.  Includes a single tile (N = 100) and
+    64-row target tiles (blocks of 64 threads)."""
+    pos, m = _sorted_disc(n, cap, kill, dev)
+    ti, tj = tiles
+    got = pw.pairwise_acc_mxu(pos, m, G, EPS, tile_i=ti, tile_j=tj)
+    torch.cuda.synchronize()
+    ref = pw.pairwise_acc_mxu_plain(pos, m, G, EPS, tile_i=ti, tile_j=tj)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, ref) < 1e-3
+    assert torch.equal(got, pw.pairwise_acc_mxu(pos, m, G, EPS, tile_i=ti,
+                                                tile_j=tj))
+    if n > 300:  # ragged above 128 rows: refused, not left unwritten
+        with pytest.raises(ValueError, match="divisible"):
+            pw.pairwise_acc_mxu(pos[:300].contiguous(),
+                                m[:300].contiguous(), G, EPS)
+
+
+def test_near_sym_on_card_matches_cpu(dev):
+    """bh with near_sym through K5 (and masked K3, K4) on the card against
+    the plain torch path on the CPU, and against the card's own walk without
+    near_sym: the same walk and the same force set."""
+    pos, vel, mass = self_gravitating_disc(2999, seed=4)
+    opts = dict(DUAL, mxu_blocks=False, near_sym=True)
+    kw = dict(engine="bh", dt=3e-2, g_soft=EPS)
+    gpu = Simulation(pos, vel, mass, device="cuda", engine_options=opts, **kw)
+    cpu = Simulation(pos, vel, mass, device="cpu", engine_options=opts, **kw)
+    gf.reset_launch_counts()
+    gpu.update_forces()
+    cpu.update_forces()
+    assert gf.launch_counts()["group_self_force"] == 1
+    assert _rel_err(gpu.state.acc.cpu(), cpu.state.acc) < 1e-5
+    st, p = gpu.state, gpu.settings
+    args = (st.pos, st.effective_mass(), p.bounds, p.theta2, p.g, p.g_soft)
+    a1, s1 = tt.bh_accel(*args, tt.BHConfig(**dict(DUAL, near_sym=True)))
+    a2, _ = tt.bh_accel(*args, tt.BHConfig(**dict(DUAL, near_sym=True)))
+    a0, s0 = tt.bh_accel(*args, tt.BHConfig(**DUAL))
+    assert torch.equal(a1, a2)
+    for k in ("accept_dropped", "frontier_fallback", "near_fallback",
+              "fb_spill"):
+        assert int(s1[k]) == int(s0[k])
+    alive = st.alive
+    row = (a1 - a0).norm(dim=1) / a0.norm(dim=1).clamp_min(1e-30)
+    assert float(row[alive].median()) < 1e-5
+
+
+def test_mxu_simulation_on_card_matches_cpu(dev):
+    """brute-pallas-mxu through K6 on the card against the plain twin on
+    the CPU: a few steps, positions within the norm trick's rounding."""
+    pos, vel, mass = self_gravitating_disc(1999, seed=1)
+    kw = dict(engine="brute-pallas-mxu", dt=3e-2, g_soft=EPS)
+    gpu = Simulation(pos, vel, mass, device="cuda", **kw)
+    cpu = Simulation(pos, vel, mass, device="cpu", **kw)
+    pw.reset_launch_counts()
+    gpu.run(3)
+    cpu.run(3)
+    assert pw.launch_counts()["pairwise_acc_mxu"] == 3
+    assert gpu.n_alive == cpu.n_alive
+    assert np.abs(gpu.get_points()[0] - cpu.get_points()[0]).max() < 1e-4
+    assert gpu.energy("exact") == pytest.approx(cpu.energy("exact"), rel=1e-5)

@@ -119,5 +119,6 @@ def test_wrappers_check_shapes_and_count_no_cpu_launches():
                        mask=torch.zeros((1, 1, 3), dtype=torch.bool))
     with pytest.raises(ValueError, match="16"):
         gf.quad_force(t, s, 1.0, 0.02, tile=128)
+    gf.group_self_force(t, t[..., 3].contiguous(), 1.0, 0.02)
     assert gf.launch_counts() == {"group_force": 0, "group_force_masked": 0,
-                                  "quad_force": 0}
+                                  "quad_force": 0, "group_self_force": 0}

@@ -92,9 +92,12 @@ def test_wrappers_on_cpu_run_the_plain_twins():
                        pw.pairwise_acc_sym_plain(pos, m, G, EPS))
     assert torch.equal(pw.pairwise_acc_targets(pos[:7], pos, m, G, EPS),
                        pw.pairwise_acc_targets_plain(pos[:7], pos, m, G, EPS))
+    assert torch.equal(pw.pairwise_acc_mxu(pos, m, G, EPS),
+                       pw.pairwise_acc_mxu_plain(pos, m, G, EPS))
     # the plain twin is no kernel launch
     assert pw.launch_counts() == {"pairwise_acc_sym": 0,
-                                  "pairwise_acc_targets": 0}
+                                  "pairwise_acc_targets": 0,
+                                  "pairwise_acc_mxu": 0}
 
 
 def test_wrappers_reject_bad_input():

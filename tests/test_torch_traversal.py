@@ -161,10 +161,10 @@ def test_theta_zero_is_the_direct_sum():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("refine_levels", 2, "item 15"), ("near_sym", True, "item 16"),
-    ("sliding_window", True, "item 16"), ("delta_onepass", True, "item 16"),
-    ("wide", True, "item 17"), ("quad_leaf", True, "item 18"),
-    ("fb_quad", True, "item 18"), ("dim", 2, "item 18")])
+    ("refine_levels", 2, "item 15"), ("sliding_window", True, "item 16"),
+    ("delta_onepass", True, "item 16"), ("wide", True, "item 17"),
+    ("quad_leaf", True, "item 18"), ("fb_quad", True, "item 18"),
+    ("dim", 2, "item 18")])
 def test_unported_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, "
                        f"{item}"):

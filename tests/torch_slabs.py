@@ -1,7 +1,7 @@
-"""Hand-built K3 / K4 inputs shared by the port's kernel tests on the CPU
-(tests/test_torch_group_force.py, against the JAX package) and on the card
-(tests/test_torch_cuda.py, which must not import jax).  The slabs are those
-of tests/test_pallas_kernels.py."""
+"""Hand-built K3 / K4 / K5 inputs shared by the port's kernel tests on the
+CPU (tests/test_torch_group_force.py and test_torch_self_force.py, against
+the JAX package) and on the card (tests/test_torch_cuda.py, which must not
+import jax).  The K3 / K4 slabs are those of tests/test_pallas_kernels.py."""
 
 import numpy as np
 
@@ -64,3 +64,17 @@ def cluster_quad_case(seed=5, G=2, B=128, A=256):
     qrows[:, 100:120] = 0.0
     return tgt8, qrows
 
+
+
+def self_square_case(G=4, B=2048, masked=0.3, seed=9):
+    """K5 inputs: G groups of B rows (x, y, z, m, idx, 0, 0, 0) at unit-ish
+    scale and their source masses msrc, a share ``masked`` of them zeroed
+    (rows whose cell the window does not cover)."""
+    rng = np.random.default_rng(seed)
+    tgt8 = np.zeros((G, B, 8), np.float32)
+    tgt8[..., :3] = rng.normal(scale=3.0, size=(G, B, 3))
+    tgt8[..., 3] = rng.uniform(0.5, 1.5, (G, B))
+    tgt8[..., 4] = np.arange(G * B).reshape(G, B)
+    keep = rng.uniform(size=(G, B)) >= masked
+    msrc = np.where(keep, tgt8[..., 3], 0.0).astype(np.float32)
+    return tgt8, msrc
