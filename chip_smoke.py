@@ -11,7 +11,8 @@ one line and stopping the script with a non-zero exit on failure:
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
   2. build: compile and load the kernels;
   3. K2 (plain pairwise) against its plain torch twin on the card;
-  4. K1 (Newton-3 pairwise) against its plain torch twin on the card;
+  4. K1 (Newton-3 pairwise) against its plain torch twin on the card, at
+     whole and ragged 256-wide tiles and at eps = 0;
   5. the direct-sum path through the CLI: the disc at N = 65536 (65535 + the
      star) for 25 steps on ``brute-pallas``, which must go through K1, and
      at N = 2048 (2047 + the star), which must go through K2; energy drift,
@@ -20,8 +21,10 @@ one line and stopping the script with a non-zero exit on failure:
      CLI run through the kernels and through the plain torch engine;
   7. K3 (group force, unmasked and block-dual masked) against its plain
      twin: hand-built slabs of every row species, eps = 0 with coincident
-     pairs, bitwise-inert padding tiles, and a few groups of the slabs that
-     the 1M and 100k walks assemble (the 100k one with its real mask);
+     pairs, bitwise-inert padding tiles, B and S off the kernel's 128-row
+     grid, a mask of target tiles finer than a block at eps = 0, and a few
+     groups of the slabs that the 1M and 100k walks assemble (the 100k one
+     with its real mask);
   8. K4 (quadrupole slab) against its plain twin: the 1M walk's
      accepted-node slab, the 100k walk's block-dual rows, and an eps = 0
      scene at 1e-3 scale;
@@ -31,8 +34,8 @@ one line and stopping the script with a non-zero exit on failure:
      go through its kernels; on its final state the walk drops nothing,
      two force calls are bitwise equal, and the forces of 4096 sampled
      alive rows meet the accuracy envelope against the K2 oracle;
- 10. times: K3 and K4 beside their twins at the shapes of both runs,
-     steps/s of both runs, and one 1M force call split by phase;
+ 10. times: K3 and K4 beside their twins and bounds at the shapes of both
+     runs, steps/s of both runs, and one 1M force call split by phase;
  11. K5 (each group's Newton-3 self square, ``near_sym``) against its plain
      twin: hand-built groups with masked source masses, eps = 0 with
      coincident rows, and the whole calls (every group) that the 1M and
@@ -232,27 +235,44 @@ def main() -> int:
           "bitwise equal to the full rows", flush=True)
 
     # -- 4. K1 -------------------------------------------------------------
+    # 8192 and 65536 fill whole 256-wide tiles; 5000 leaves a ragged one;
+    # eps 0 (with coincident particles) goes through the guarded instance
+    # and is held per alive row, as K2 is in phase 3
     k1_abs, parts = None, []
-    for cap in (8192, 65536):
-        for kill in (0, 37):
-            pos, m, _ = disc(cap - 1, cap, kill)
-            got = pw.pairwise_acc_sym(pos, m, G, EPS)
-            ref = pw.pairwise_acc_sym_plain(pos, m, G, EPS)
+    for cap, kill, g_soft in ((8192, 0, EPS), (8192, 37, EPS),
+                              (65536, 0, EPS), (65536, 37, EPS),
+                              (5000, 11, EPS), (5000, 11, 0.0)):
+        pos, m, alive = disc(cap - 1, cap, kill)
+        if g_soft == 0.0:
+            pos = pos.clone()
+            pos[200:205] = pos[100]  # r^2 == 0 takes the guard
+        got = pw.pairwise_acc_sym(pos, m, G, g_soft)
+        ref = pw.pairwise_acc_sym_plain(pos, m, G, g_soft)
+        require(bool(torch.isfinite(got).all()),
+                f"K1 at {cap}, eps {g_soft}: not finite")
+        if g_soft == 0.0:
+            row = ((got - ref).norm(dim=1)
+                   / ref.norm(dim=1).clamp_min(1e-30))
+            e = float(row[alive].max())
+            require(e < 1e-3, f"K1 vs plain at {cap}, eps 0 (alive rows): "
+                    f"{e:.3e}")
+        else:
             e = rel_err(got, ref)
             require(e < 1e-4, f"K1 vs plain at {cap}, {kill} dead: {e:.3e}")
-            net = (got * m[:, None]).sum(dim=0).abs().max()
-            scale = (got.abs() * m[:, None]).sum()
-            require(float(net) < 1e-5 * float(scale),
-                    f"K1 momentum at {cap}: {float(net):.3e} vs "
-                    f"{float(scale):.3e}")
-            require(torch.equal(got, pw.pairwise_acc_sym(pos, m, G, EPS)),
-                    f"K1 is not bit-reproducible at {cap}")
-            if cap == 65536 and kill == 0:
-                k1_abs = float((got - ref).abs().max())
-            parts.append(f"{cap}/{kill} dead {e:.3e} (|sum m a| / sum m|a| "
-                         f"{float(net) / float(scale):.1e})")
-    print("[4 K1] rel err vs plain: " + ", ".join(parts)
-          + "; two calls bitwise equal", flush=True)
+        net = (got * m[:, None]).sum(dim=0).abs().max()
+        scale = (got.abs() * m[:, None]).sum()
+        require(float(net) < 1e-5 * float(scale),
+                f"K1 momentum at {cap}: {float(net):.3e} vs "
+                f"{float(scale):.3e}")
+        require(torch.equal(got, pw.pairwise_acc_sym(pos, m, G, g_soft)),
+                f"K1 is not bit-reproducible at {cap}")
+        if cap == 65536 and kill == 0:
+            k1_abs = float((got - ref).abs().max())
+        what = "per alive row" if g_soft == 0.0 else "rel err"
+        parts.append(f"{cap}/{kill} dead eps {g_soft} {what} {e:.3e} "
+                     f"(|sum m a| / sum m|a| {float(net) / float(scale):.1e})")
+    print(f"[4 K1] tile {_build.load_library().nbody_sym_tile()}; vs plain: "
+          + ", ".join(parts) + "; two calls bitwise equal", flush=True)
 
     # -- 5. main path ------------------------------------------------------
     ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -339,6 +359,7 @@ def main() -> int:
     k1_bound = bound(nm * (nm - 1) / 2 + nm * (n1 - nm), OPS["sym"], 28 * n1)
     k2_bound = bound(pos2.shape[0] * nnz(m2), OPS["pair"],
                      28 * pos2.shape[0])
+    k2_full_bound = bound(n1 * nm, OPS["pair"], 28 * n1)
     steps = {}
     for engine in ("brute", "brute-pallas", "brute-pallas", "brute"):
         r = cli.main(["-n", "65535", "--engine", engine, "--steps", "25",
@@ -348,7 +369,8 @@ def main() -> int:
     print(f"[6 times] {smi} | K1 @65536 {k1_ms:.4f} ms (plain {k1_plain:.3f}"
           f" ms, bound {k1_bound[0]:.4f} ms) | K2 @2048 {k2_ms:.4f} ms (plain "
           f"{k2_plain:.4f} ms, bound {k2_bound[0]:.5f} ms) | K2 "
-          f"full @65536 {k2_full_ms:.4f} ms | K2 1024 targets x 65536 "
+          f"full @65536 {k2_full_ms:.4f} ms (bound {k2_full_bound[0]:.4f} "
+          f"ms) | K2 1024 targets x 65536 "
           f"{k2_or_ms:.4f} ms (plain {k2_or_plain:.3f} ms) | steps/s @65536,"
           f" 25-step CLI run: brute-pallas {steps['brute-pallas']} "
           f"brute (plain torch) {steps['brute']}", flush=True)
@@ -442,6 +464,21 @@ def main() -> int:
     e, _ = k3_check((tl, tl.clone(), G, 0.0), dict(tile=128, mask=None),
                     "eps 0 coincident")
     parts.append(f"eps 0 coincident {e:.2e}")
+    # B and S that are not multiples of a block's 128 targets and of a
+    # stage's 128 rows; a mask of 4-row target tiles (finer than a block)
+    # at eps 0, the guarded masked instance
+    t8, sl = species_slab(np, 3, 1000, 640, 5)
+    e, _ = k3_check((torch.from_numpy(t8).to(dev),
+                     torch.from_numpy(sl).to(dev), G, EPS),
+                    dict(tile=128, mask=None), "ragged B")
+    parts.append(f"B 1000 x S 640 {e:.2e}")
+    t8, sl = species_slab(np, 2, 1024, 512, 6)
+    mask = torch.as_tensor(np.random.default_rng(7).random((2, 256, 4))
+                           < 0.5, device=dev)
+    e, _ = k3_check((torch.from_numpy(t8).to(dev),
+                     torch.from_numpy(sl).to(dev), G, 0.0),
+                    dict(tile=128, mask=mask), "TI 4 mask, eps 0")
+    parts.append(f"mask of 4-row target tiles at eps 0 {e:.2e}")
     a, k = calls_1m["group_force"][0]
     sel_1m = [0, 1, a[0].shape[0] // 2, a[0].shape[0] - 1]
     e, k3_abs = k3_check(*pick(a, k, sel_1m), "1M slab")
@@ -614,9 +651,11 @@ def main() -> int:
     a, k = calls_100k["quad_force"][0]
     k4d_ms, k4d_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
+    k4d_bnd = k4_bound(a[0], a[1])
     a, k = calls_100k["quad_force"][1]
     k4a_ms, k4a_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
+    k4a_bnd = k4_bound(a[0], a[1])
 
     def force_split(n, **over):
         """One bh force call at n, split at the phase marks with CUDA
@@ -649,8 +688,9 @@ def main() -> int:
           f"{k3m_plain:.1f} ms, bound {k3m_bnd[0]:.4f} ms) | K4 @1M "
           f"accepted nodes: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, bound "
           f"{k4_bnd[0]:.3f} ms) | K4 "
-          f"@100k dual rows: {k4d_ms:.4f} ms (plain {k4d_plain:.2f} ms), "
-          f"accepted nodes: {k4a_ms:.3f} ms (plain {k4a_plain:.1f} ms) | "
+          f"@100k dual rows: {k4d_ms:.4f} ms (plain {k4d_plain:.2f} ms, "
+          f"bound {k4d_bnd[0]:.4f} ms), accepted nodes: {k4a_ms:.3f} ms "
+          f"(plain {k4a_plain:.1f} ms, bound {k4a_bnd[0]:.4f} ms) | "
           f"steps/s: 100k {bh_results['100k']['steps_per_second']:.3f}, 1M "
           f"{bh_results['1M']['steps_per_second']:.3f} | one 1M force call "
           f"(ms): {json.dumps(split)}", flush=True)

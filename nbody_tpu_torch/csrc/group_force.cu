@@ -12,104 +12,146 @@
 //     mask [G, B/TI, S/tile] (bytes) and skips every (target, source) pair
 //     whose entry mask[g, row / TI, col / tile] is set: those pairs ride the
 //     source tile's quadrupole (K4) instead.  TI and tile are the grid the
-//     mask was built on; the lookup is per row and per column, so any TI
-//     and tile that divide B and S work with this kernel's own blocks.
+//     mask was built on; tile is a multiple of the 128-row stage, so a
+//     stage lies in one source tile and the lookup is one byte per (target
+//     row, stage), whatever TI is.
+//
+//     What bounds it on the card: instruction issue.  A stage of 128 rows
+//     (2 KB) serves 128 x 128 pair evaluations, so bytes are no limit, and
+//     the MUFU rsqrt (16 a clock per SM) is one in every ~14 instructions.
+//     The design keeps the instructions a pair few (SASS:
+//     scripts/torch_kernel_profile.py; PERF.md):
+//       - it is specialised on eps (softened.cuh): at eps > 0 the r == 0
+//         guard and rsqrtf's subnormal scaling, five FP32 instructions a
+//         pair, are left out, and eps^2 seeds the first FMA of r^2: 12
+//         FP32, one MUFU and one broadcast shared load a pair;
+//       - each stage is a fully unrolled loop of fixed length (128; the
+//         slab's tail is zero-filled, and zero-mass rows add exactly 0), so
+//         no loop control runs per pair;
+//       - the mask is looked up once per (target, stage), and a masked
+//         stage is skipped whole: the mask's source tile is a multiple of
+//         the stage, so a stage lies in one tile;
+//       - the next stage is fetched with cp.async into the other half of a
+//         double buffer while this one is evaluated.
+//     One target a thread: holding 2, 4 or 8 targets a thread (one shared
+//     load for several pairs) measured slower on the card at both main-path
+//     shapes, as the registers it takes cut the resident warps.
+//     A stage whose masses are all zero is skipped (__syncthreads_or):
+//     slabs are prefix-compacted and mostly padding at their caps; skipping
+//     zero-mass rows changes no bit, so a slab padded with empty tiles gives
+//     bitwise the same forces.
+//
+//     Summation order: every target adds each stage's sources in order into
+//     a partial that starts from zero, and adds the partials in stage order
+//     (a two-level sum: its rounding grows with 128 + S/128 terms, not S),
+//     then multiplies by G.  No atomics: runs are bit-reproducible.
 //
 // K4  quad_force_kernel  replaces nbody_tpu/ops/group_force.py
 //     quad_force_pallas (kernel _quad_kernel):
 //         a = G [ M e/r^3 - Q e/r^5 + 5/2 (e^T Q e) e/r^7 ]
 //     over 16-wide traceless-quadrupole rows (x, y, z, M, Qxx, Qyy, Qzz,
-//     Qxy, Qxz, Qyz, 0...) [G, A, 16].
+//     Qxy, Qxz, Qyz, 0...) [G, A, 16].  One block per (128-target chunk,
+//     group), one thread per target; the block streams the source rows
+//     through shared memory 128 at a time (x, y, z, M and the six Q
+//     columns), skips zero-mass stages and adds two-level sums as K3 does.
+//     What bounds it: FP32 issue (~40 instructions a pair) and its
+//     double-precision rsqrt: 1/r correctly rounded, because the
+//     quadrupole terms raise it to the 7th power.
 //
-// Structure (both): one block per (128-target chunk, group), one thread per
-// target holding it in registers; the block streams the group's source rows
-// through shared memory 128 at a time, loading only the columns the force
-// law reads (x, y, z, m: one float4; K4 adds the six Q columns).  A staged
-// chunk whose masses are all zero is skipped (__syncthreads_or): slabs are
-// prefix-compacted and mostly padding at their caps.  Skipping zero-mass
-// rows changes no bit of the result, so a slab padded with empty tiles
-// gives bitwise the same forces.  Every target adds each chunk's sources in
-// order into a partial sum that starts from zero, adds the partials in chunk
-// order (a two-level sum: its rounding grows with 128 + S/128 terms, not S)
-// and multiplies by G at the end, as the TPU wrappers do: no atomics, so
-// runs are bit-reproducible.
-//
-// No self-pair index test: a self or coincident pair has d = 0 and adds
-// exactly 0 once r^2 == 0 is replaced by 1.  The guard is applied always
-// (with eps > 0 it never fires); the TPU's lax.cond split on eps, its
+// No self-pair index test in either: a self or coincident pair has d = 0
+// and adds exactly 0 (softened.cuh); the TPU's lax.cond split on eps, its
 // (1, 128) VMEM scalar row and its (8, 128)-expanded mask are gone.
-//
-// What bounds them on the card: FP32 instruction issue, not bytes.  A staged
-// chunk of 128 rows (2 KB for K3, 5 KB for K4) serves 128 x 128 pair
-// evaluations; K3 spends ~14 FP32 instructions and one MUFU rsqrt a pair,
-// K4 ~40 and a double-precision rsqrt.  At the 1M bh tier K3 evaluates
-// ~1e10 pairs a step.  Register blocking (several targets a thread) and
-// wider staging are later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "softened.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // targets per block = source rows per stage
+constexpr int kThreads = 128;  // threads per block
+constexpr int kChunk = 128;    // source rows per stage, one copied a thread
+static_assert(kThreads == kChunk, "each thread stages one source row");
 
+__device__ __forceinline__ void cp_async16(float4* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage source rows [base, base + kChunk) of a group's slab: (x, y, z, m),
+// zero-filled past S.
+__device__ __forceinline__ void stage_rows(float4* dst, const float* rows,
+                                           int base, int S) {
+  const int j = base + static_cast<int>(threadIdx.x);
+  cp_async16(dst + threadIdx.x,
+             rows + static_cast<size_t>(j < S ? j : S - 1) * 8,
+             j < S ? 16 : 0);
+}
+
+// One thread per target row; one block: kThreads rows of group blockIdx.y.
+template <bool kSoft, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 group_force_kernel(const float* __restrict__ tgt8,
                    const float* __restrict__ slab,
                    const unsigned char* __restrict__ mask, int B, int S,
                    int ti, int tile, int st, float eps2, float g,
                    float* __restrict__ out) {
-  __shared__ float4 src[kThreads];
+  __shared__ float4 stage[2][kChunk];
   const int grp = blockIdx.y;
   const int row = blockIdx.x * kThreads + threadIdx.x;
   const bool active = row < B;
-  const float* t = tgt8 + (static_cast<size_t>(grp) * B + (active ? row : 0)) * 8;
-  const float xi = t[0], yi = t[1], zi = t[2];
-  const float* rows = slab + static_cast<size_t>(grp) * S * 8;
+  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (active) {
+    t = *reinterpret_cast<const float4*>(
+        tgt8 + (static_cast<size_t>(grp) * B + row) * 8);
+  }
+  const float xi = t.x, yi = t.y, zi = t.z;
   // this target's row of the mask: one byte per source tile
   const unsigned char* mrow =
-      mask == nullptr
-          ? nullptr
-          : mask + (static_cast<size_t>(grp) * (B / ti) + (active ? row : 0) / ti) * st;
-
+      kMasked ? mask + (static_cast<size_t>(grp) * (B / ti) +
+                        (active ? row : 0) / ti) * st
+              : nullptr;
+  const float* rows = slab + static_cast<size_t>(grp) * S * 8;
+  const int chunks = (S + kChunk - 1) / kChunk;
+  stage_rows(stage[0], rows, 0, S);
+  cp_async_commit();
   float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int base = 0; base < S; base += kThreads) {
-    const int cnt = min(kThreads, S - base);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (static_cast<int>(threadIdx.x) < cnt) {
-      v = *reinterpret_cast<const float4*>(
-          rows + static_cast<size_t>(base + threadIdx.x) * 8);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_all();
+    const float4* src = stage[c & 1];
+    // the barrier that publishes stage c also tells whether it has mass,
+    // and that every thread is done with stage c - 1, whose buffer the
+    // next fetch overwrites
+    const bool live = __syncthreads_or(src[threadIdx.x].w != 0.f);
+    if (c + 1 < chunks) {
+      stage_rows(stage[(c + 1) & 1], rows, (c + 1) * kChunk, S);
     }
-    src[threadIdx.x] = v;
-    if (__syncthreads_or(v.w != 0.f)) {
-      // the chunk's partial sum starts from zero and joins the total once
-      float cx = 0.f, cy = 0.f, cz = 0.f;
-      // split the chunk at source-tile boundaries: each segment has one mask
-      // entry for this target
-      int j = 0;
-      while (j < cnt) {
-        const int col = base + j;
-        const int end = min(cnt, (col / tile + 1) * tile - base);
-        if (mrow == nullptr || mrow[col / tile] == 0) {
-          for (int k = j; k < end; ++k) {
-            const float4 s = src[k];
-            const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-            float r2 = dx * dx + dy * dy + dz * dz + eps2;
-            r2 = r2 > 0.f ? r2 : 1.f;
-            const float ir = rsqrtf(r2);
-            const float w = ir * ir * ir * s.w;
-            cx = fmaf(w, dx, cx);
-            cy = fmaf(w, dy, cy);
-            cz = fmaf(w, dz, cz);
-          }
-        }
-        j = end;
-      }
-      ax += cx;
-      ay += cy;
-      az += cz;
+    cp_async_commit();
+    if (!live || (kMasked && mrow[c * kChunk / tile] != 0)) continue;
+    // the stage's partial sum starts from zero and joins the total once
+    float cx = 0.f, cy = 0.f, cz = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float4 s = src[k];
+      const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
+      const float w = nbody::softened_ir3<kSoft>(dx, dy, dz, eps2) * s.w;
+      cx = fmaf(w, dx, cx);
+      cy = fmaf(w, dy, cy);
+      cz = fmaf(w, dz, cz);
     }
-    __syncthreads();
+    ax += cx;
+    ay += cy;
+    az += cz;
   }
   if (active) {
     float* o = out + (static_cast<size_t>(grp) * B + row) * 3;
@@ -203,17 +245,36 @@ extern "C" {
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
+int nbody_k3_stage(void) { return kChunk; }
+
+// K3.  A masked call needs tile to be a multiple of the 128-row stage.
 int nbody_group_force(const float* tgt8, const float* slab,
                       const unsigned char* mask, int G, int B, int S, int ti,
                       int tile, int st, float eps2, float g, float* out,
                       void* stream) {
   if (!grid_ok(G, B) || S <= 0 || tile <= 0 || S % tile != 0 || ti <= 0 ||
-      B % ti != 0 || (mask != nullptr && st != S / tile)) {
+      B % ti != 0 ||
+      (mask != nullptr && (st != S / tile || tile % kChunk != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + kThreads - 1) / kThreads, G);
-  group_force_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tgt8, slab, mask, B, S, ti, tile, st, eps2, g, out);
+  const bool soft = nbody::softened(eps2);
+  if (mask != nullptr) {
+    if (soft) {
+      group_force_kernel<true, true><<<grid, kThreads, 0, s>>>(
+          tgt8, slab, mask, B, S, ti, tile, st, eps2, g, out);
+    } else {
+      group_force_kernel<false, true><<<grid, kThreads, 0, s>>>(
+          tgt8, slab, mask, B, S, ti, tile, st, eps2, g, out);
+    }
+  } else if (soft) {
+    group_force_kernel<true, false><<<grid, kThreads, 0, s>>>(
+        tgt8, slab, mask, B, S, ti, tile, st, eps2, g, out);
+  } else {
+    group_force_kernel<false, false><<<grid, kThreads, 0, s>>>(
+        tgt8, slab, mask, B, S, ti, tile, st, eps2, g, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

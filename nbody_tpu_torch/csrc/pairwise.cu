@@ -1,12 +1,12 @@
 // Direct-sum gravity kernels for Hopper (sm_90a), bound through a plain C
 // interface (ctypes; see nbody_tpu_torch/ops/_build.py).
 //
-// Both compute, for every target i,
+// All compute, for every target i,
 //     a_i = G * sum_j m_j (p_j - p_i) / (|p_j - p_i|^2 + eps^2)^{3/2}
 // in fp32, with m_j = 0 for dead and padding sources.  A self or coincident
-// pair has d = 0 and so contributes exactly 0; the guard r2 > 0 ? r2 : 1
-// keeps rsqrt finite for it when eps = 0 (with eps > 0 it never fires, so it
-// is applied always instead of being a separate kernel variant).
+// pair has d = 0 and so contributes exactly 0.  K2 applies the guard
+// r2 > 0 ? r2 : 1 always (with eps > 0 it never fires); K1 and K5 are
+// specialised on eps and apply it only at eps = 0 (softened.cuh).
 //
 // K2  acc_targets_kernel  replaces nbody_tpu/ops/pairwise.py
 //     pairwise_acc_pallas_targets (and pairwise_acc_pallas, the K = N case):
@@ -23,8 +23,8 @@
 //     kernel carries the mirrored column sums in one VMEM accumulator across
 //     a sequential grid; blocks on the card run in parallel and in no order,
 //     so here each block owns one lower-triangle tile pair (bi, bj), bj <= bi,
-//     of 128 x 128 particles and writes its two partial sums to a separate
-//     slot of a [nt, N, 3] buffer:
+//     of 256 x 256 particles and writes its two partial sums to a separate
+//     slot of a [nt, N, 3] buffer (nt = N / 256, nbody_sym_tile()):
 //         partial[bj][rows of tile bi] = row sums (force on the targets)
 //         partial[bi][cols of tile bj] = -sum_i m_i ir3 d (force on the
 //                                        sources), only when bj < bi
@@ -33,12 +33,19 @@
 //     then adds the nt partials of each particle in the fixed order
 //     b = 0..nt-1.  No atomics: runs are bit-reproducible.
 //
-//     Inside an off-diagonal tile pair a lane owns two target rows in
-//     registers, and a packet (x, y, z, m, column sums) for one source column
-//     rotates around the warp with __shfl_sync: after 32 steps each column
-//     has met all 64 rows of the warp and is back at its home lane, with its
-//     column sum accumulated in registers.  The warps' column sums are then
+//     Inside a tile pair every lane holds eight target rows of tile bi in
+//     registers (lane l: rows l, l + 32, ..., l + 224), so each of the 8
+//     warps holds all 256 rows, and warp w takes the 32 columns
+//     [32w, 32w + 32) of tile bj.  A packet (x, y, z, m, column sums) for
+//     one column rotates around the warp with __shfl_sync: after 32 steps
+//     each column has met all 256 rows and is back at its home lane with its
+//     column sum, which goes straight to its slot.  The warps' row sums are
 //     added in warp order through shared memory.
+//
+//     Summation order: a column's sum runs over the 256 rows in rotation
+//     order (step, then row r); a row's partial is the 8 warps' sums of 32
+//     columns each, added in warp order; the reduction adds the N / 256
+//     tile partials in tile order.
 //
 // K5  acc_sym_tiles_kernel<8> + sym_reduce_kernel, batched over groups,
 //     replace nbody_tpu/ops/group_force.py group_self_force_pallas
@@ -53,27 +60,35 @@
 //     rows, weights, [nt, B, 3] partial slots and outputs sit at fixed
 //     offsets.  The TPU kernel's band classification of 512 x 1024 tiles
 //     existed for its sequential grid and VMEM; here every group is K1's
-//     lower triangle of 128 x 128 tile pairs.  Scratch: G * B/128 * B * 3
-//     floats (0.8 GB at the 1M tier, G = 128, B = 8192).
+//     lower triangle of 256 x 256 tile pairs.  Scratch: G * B/256 * B * 3
+//     floats (0.4 GB at the 1M tier, G = 128, B = 8192).
 //
-// What bounds them on the card: not bytes.  A tile pair reads 4 KB and
-// performs 16384 pair evaluations.  K2 is bound by FP32 instruction
-// throughput (about 14 FP32 instructions a pair) beside the MUFU rsqrt (16
-// a clock per SM).  K1 spends about 17 FP32 instructions a pair for two
-// ordered pairs, and 7 warp shuffles per 64 pairs, so FP32 throughput stays
-// the bound.  The partial buffer of K1 adds 2 * nt * N * 12 bytes of traffic
-// (0.8 GB at N = 65536), a small share of the kernel's time; making these
-// fast (register blocking, fewer partials, persistent blocks) is later work.
+// What bounds them on the card: instruction issue, not bytes.  A tile pair
+// of K1 reads 8 KB and evaluates 32768 unordered pairs; the MUFU rsqrt (16 a
+// clock per SM) is one in every ~18 instructions.  K2 issues ~21
+// instructions a pair (SASS: scripts/torch_kernel_profile.py; PERF.md).
+// K1 and K5 keep theirs few: eight rows a lane let one rotation of the
+// 7-float packet serve eight pairs (7/8 shuffle a pair), and the
+// specialisation on eps (softened.cuh) leaves out the r == 0 guard and
+// rsqrtf's subnormal scaling at eps > 0: 16 FP32 instructions and one MUFU
+// a pair.  Each block holds 256 rows of positions, masses and sums in
+// registers (two blocks an SM).  The 256-wide tiles keep the partial
+// buffer to 2 * nt * N * 12 bytes of traffic (0.4 GB at N = 65536), about
+// a twentieth of K1's time with its reduction.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "softened.cuh"
+
 namespace {
 
-constexpr int kTargetsThreads = 128;          // K2: targets per block
-constexpr int kSymTile = 128;                 // K1: rows = cols of a tile pair
-constexpr int kSymWarps = 2;                  // K1: warps per block
-constexpr int kSymRows = kSymTile / (32 * kSymWarps);  // K1: rows per lane
+constexpr int kTargetsThreads = 128;  // K2: targets per block
+constexpr int kSymTile = 256;         // K1: rows = cols of a tile pair
+constexpr int kSymRows = kSymTile / 32;   // K1: rows per lane (all of bi's)
+constexpr int kSymWarps = kSymTile / 32;  // K1: warps, 32 columns each
+constexpr int kSymThreads = 32 * kSymWarps;  // = kSymTile: a row each to add
+static_assert(kSymThreads == kSymTile, "one thread per row in the row sums");
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float inv_r3(float dx, float dy, float dz,
@@ -126,14 +141,13 @@ acc_targets_kernel(const float* __restrict__ pos_t, int k,
 // kStride: floats between two particles' rows in `pos` (3 for K1's [N, 3]
 // positions, 8 for K5's [G, B, 8] group rows).  blockIdx.y is the group
 // (always 0 for K1): group g's n rows, n weights and nt * n * 3 partial
-// floats follow group g - 1's.
-template <int kStride>
-__global__ void __launch_bounds__(kSymWarps * 32)
+// floats follow group g - 1's.  kSoft: softened.cuh.
+template <int kStride, bool kSoft>
+__global__ void __launch_bounds__(kSymThreads, 2)
 acc_sym_tiles_kernel(const float* __restrict__ pos,
                      const float* __restrict__ mass, int n, float eps2,
                      float* __restrict__ partial) {
-  __shared__ float4 src[kSymTile];                  // diagonal tiles
-  __shared__ float colsum[kSymWarps][kSymTile][3];  // off-diagonal tiles
+  __shared__ float rowsum[kSymWarps][3][kSymTile];
   const size_t grp = blockIdx.y;
   const size_t nt_all = (n + kSymTile - 1) / kSymTile;
   pos += grp * n * kStride;
@@ -151,103 +165,99 @@ acc_sym_tiles_kernel(const float* __restrict__ pos,
   const int warp = threadIdx.x >> 5;
   const size_t slot = static_cast<size_t>(3) * n;  // floats per partial slot
 
-  int row[kSymRows];
+  // rows past n carry zero mass at the origin: they add nothing to any
+  // column and their row sums are not written
   float xi[kSymRows], yi[kSymRows], zi[kSymRows], mi[kSymRows];
   float ax[kSymRows], ay[kSymRows], az[kSymRows];
 #pragma unroll
   for (int r = 0; r < kSymRows; ++r) {
-    row[r] = bi * kSymTile + (warp * kSymRows + r) * 32 + lane;
-    const bool ok = row[r] < n;
-    xi[r] = ok ? pos[kStride * row[r]] : 0.f;
-    yi[r] = ok ? pos[kStride * row[r] + 1] : 0.f;
-    zi[r] = ok ? pos[kStride * row[r] + 2] : 0.f;
-    mi[r] = ok ? mass[row[r]] : 0.f;
+    const int row = bi * kSymTile + r * 32 + lane;
+    const bool ok = row < n;
+    xi[r] = ok ? pos[kStride * row] : 0.f;
+    yi[r] = ok ? pos[kStride * row + 1] : 0.f;
+    zi[r] = ok ? pos[kStride * row + 2] : 0.f;
+    mi[r] = ok ? mass[row] : 0.f;
     ax[r] = ay[r] = az[r] = 0.f;
   }
+  // this lane's home column of the warp's 32
+  const int j = bj * kSymTile + warp * 32 + lane;
+  const bool jok = j < n;
+  float xj = jok ? pos[kStride * j] : 0.f;
+  float yj = jok ? pos[kStride * j + 1] : 0.f;
+  float zj = jok ? pos[kStride * j + 2] : 0.f;
+  float mj = jok ? mass[j] : 0.f;
+  const int from = (lane + 1) & 31;  // the packet moves one lane down a step
 
   if (bi == bj) {
     // diagonal tile: every ordered pair of it is native here, one direction
-    for (int t = threadIdx.x; t < kSymTile; t += kSymWarps * 32) {
-      const int j = bj * kSymTile + t;
-      src[t] = j < n ? make_float4(pos[kStride * j], pos[kStride * j + 1],
-                                   pos[kStride * j + 2], mass[j])
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-    const int cnt = min(kSymTile, n - bj * kSymTile);
-    for (int t = 0; t < cnt; ++t) {
-      const float4 s = src[t];
+#pragma unroll 1
+    for (int step = 0; step < 32; ++step) {
 #pragma unroll
       for (int r = 0; r < kSymRows; ++r) {
-        const float dx = s.x - xi[r], dy = s.y - yi[r], dz = s.z - zi[r];
-        const float w = inv_r3(dx, dy, dz, eps2) * s.w;
+        const float dx = xj - xi[r], dy = yj - yi[r], dz = zj - zi[r];
+        const float w = nbody::softened_ir3<kSoft>(dx, dy, dz, eps2) * mj;
         ax[r] = fmaf(w, dx, ax[r]);
         ay[r] = fmaf(w, dy, ay[r]);
         az[r] = fmaf(w, dz, az[r]);
       }
+      xj = __shfl_sync(kFullMask, xj, from);
+      yj = __shfl_sync(kFullMask, yj, from);
+      zj = __shfl_sync(kFullMask, zj, from);
+      mj = __shfl_sync(kFullMask, mj, from);
     }
   } else {
     // strictly below the diagonal: one evaluation serves both directions
-    for (int c = 0; c < kSymTile / 32; ++c) {
-      const int j = bj * kSymTile + c * 32 + lane;
-      const bool ok = j < n;
-      float xj = ok ? pos[kStride * j] : 0.f;
-      float yj = ok ? pos[kStride * j + 1] : 0.f;
-      float zj = ok ? pos[kStride * j + 2] : 0.f;
-      float mj = ok ? mass[j] : 0.f;
-      float cx = 0.f, cy = 0.f, cz = 0.f;
-#pragma unroll 4
-      for (int step = 0; step < 32; ++step) {
+    float cx = 0.f, cy = 0.f, cz = 0.f;
+#pragma unroll 1
+    for (int step = 0; step < 32; ++step) {
 #pragma unroll
-        for (int r = 0; r < kSymRows; ++r) {
-          const float dx = xj - xi[r], dy = yj - yi[r], dz = zj - zi[r];
-          const float ir3 = inv_r3(dx, dy, dz, eps2);
-          const float w = ir3 * mj;
-          ax[r] = fmaf(w, dx, ax[r]);
-          ay[r] = fmaf(w, dy, ay[r]);
-          az[r] = fmaf(w, dz, az[r]);
-          const float wc = ir3 * mi[r];
-          cx = fmaf(-wc, dx, cx);
-          cy = fmaf(-wc, dy, cy);
-          cz = fmaf(-wc, dz, cz);
-        }
-        // rotate the column packet one lane down; after 32 steps it is home
-        const int from = (lane + 1) & 31;
-        xj = __shfl_sync(kFullMask, xj, from);
-        yj = __shfl_sync(kFullMask, yj, from);
-        zj = __shfl_sync(kFullMask, zj, from);
-        mj = __shfl_sync(kFullMask, mj, from);
-        cx = __shfl_sync(kFullMask, cx, from);
-        cy = __shfl_sync(kFullMask, cy, from);
-        cz = __shfl_sync(kFullMask, cz, from);
+      for (int r = 0; r < kSymRows; ++r) {
+        const float dx = xj - xi[r], dy = yj - yi[r], dz = zj - zi[r];
+        const float ir3 = nbody::softened_ir3<kSoft>(dx, dy, dz, eps2);
+        const float w = ir3 * mj;
+        ax[r] = fmaf(w, dx, ax[r]);
+        ay[r] = fmaf(w, dy, ay[r]);
+        az[r] = fmaf(w, dz, az[r]);
+        const float wc = ir3 * mi[r];
+        cx = fmaf(-wc, dx, cx);
+        cy = fmaf(-wc, dy, cy);
+        cz = fmaf(-wc, dz, cz);
       }
-      colsum[warp][c * 32 + lane][0] = cx;
-      colsum[warp][c * 32 + lane][1] = cy;
-      colsum[warp][c * 32 + lane][2] = cz;
+      // after 32 steps the packet is home, its column sum complete
+      xj = __shfl_sync(kFullMask, xj, from);
+      yj = __shfl_sync(kFullMask, yj, from);
+      zj = __shfl_sync(kFullMask, zj, from);
+      mj = __shfl_sync(kFullMask, mj, from);
+      cx = __shfl_sync(kFullMask, cx, from);
+      cy = __shfl_sync(kFullMask, cy, from);
+      cz = __shfl_sync(kFullMask, cz, from);
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < kSymTile; t += kSymWarps * 32) {
-      const int j = bj * kSymTile + t;
-      if (j < n) {
-        float* dst = partial + static_cast<size_t>(bi) * slot + 3 * j;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          float s = 0.f;
-#pragma unroll
-          for (int w = 0; w < kSymWarps; ++w) s += colsum[w][t][d];
-          dst[d] = s;
-        }
-      }
+    if (jok) {
+      float* dst = partial + static_cast<size_t>(bi) * slot + 3 * j;
+      dst[0] = cx;
+      dst[1] = cy;
+      dst[2] = cz;
     }
   }
 
+  // row sums: each warp's over its 32 columns, added in warp order
 #pragma unroll
   for (int r = 0; r < kSymRows; ++r) {
-    if (row[r] < n) {
-      float* dst = partial + static_cast<size_t>(bj) * slot + 3 * row[r];
-      dst[0] = ax[r];
-      dst[1] = ay[r];
-      dst[2] = az[r];
+    rowsum[warp][0][r * 32 + lane] = ax[r];
+    rowsum[warp][1][r * 32 + lane] = ay[r];
+    rowsum[warp][2][r * 32 + lane] = az[r];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int row = bi * kSymTile + t;
+  if (row < n) {
+    float* dst = partial + static_cast<size_t>(bj) * slot + 3 * row;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float s = rowsum[0][d][t];
+#pragma unroll
+      for (int w = 1; w < kSymWarps; ++w) s += rowsum[w][d][t];
+      dst[d] = s;
     }
   }
 }
@@ -279,10 +289,14 @@ int launch_sym(const float* pos, const float* mass, int groups, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long pairs = nt * (nt + 1) / 2;
-  acc_sym_tiles_kernel<kStride>
-      <<<dim3(static_cast<unsigned>(pairs), groups), kSymWarps * 32, 0, s>>>(
-          pos, mass, n, eps2, partial);
+  const dim3 grid(static_cast<unsigned>(nt * (nt + 1) / 2), groups);
+  if (nbody::softened(eps2)) {
+    acc_sym_tiles_kernel<kStride, true><<<grid, kSymThreads, 0, s>>>(
+        pos, mass, n, eps2, partial);
+  } else {
+    acc_sym_tiles_kernel<kStride, false><<<grid, kSymThreads, 0, s>>>(
+        pos, mass, n, eps2, partial);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sym_reduce_kernel<<<dim3((3 * n + 255) / 256, groups), 256, 0, s>>>(
@@ -317,7 +331,7 @@ int nbody_acc_sym(const float* pos, const float* mass, int n, float eps2,
                        stream);
 }
 
-// K5: tgt8 [G, B, 8] rows, msrc [G, B] weights, partial [G, B/128, B, 3],
+// K5: tgt8 [G, B, 8] rows, msrc [G, B] weights, partial [G, B/256, B, 3],
 // out [G, B, 3].
 int nbody_self_force(const float* tgt8, const float* msrc, int G, int B,
                      float eps2, float g, float* partial,

@@ -137,6 +137,8 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_quad_force.restype = i
     lib.nbody_sym_tile.argtypes = []
     lib.nbody_sym_tile.restype = i
+    lib.nbody_k3_stage.argtypes = []
+    lib.nbody_k3_stage.restype = i
     lib.nbody_error_string.argtypes = [i]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

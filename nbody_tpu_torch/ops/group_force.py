@@ -13,8 +13,8 @@ the JAX package's transposed [G, 8, S] slab existed for TPU lanes.
     (target tile, source tile) pairs it marks: those ride the source tile's
     quadrupole instead.  TI and tile are the grid the mask was built on
     (``fit_target_tile``, traversal ``_fit_eval_tile``); the kernel looks the
-    mask up per row and column whatever its own block shape.
-    Kernel: ``csrc/group_force.cu`` group_force_kernel.
+    mask up once per (row, 128-row stage), so on the card ``tile`` is a
+    multiple of 128.  Kernel: ``csrc/group_force.cu`` group_force_kernel.
   * ``quad_force`` (K4): a = G [M e/r^3 - Q e/r^5 + 5/2 (eᵀQe) e/r^7] over
     traceless-quadrupole rows.  Kernel: ``csrc/group_force.cu``
     quad_force_kernel.
@@ -27,9 +27,8 @@ the JAX package's transposed [G, 8, S] slab existed for TPU lanes.
     tiles with a grid dimension over groups).
 
 No self-pair index test: a self or coincident pair has d = 0 and adds
-exactly 0 once r^2 == 0 is replaced by 1 (the guard is applied always; with
-eps > 0 it never fires).  Source tiles whose masses are all zero are
-skipped, which changes no bit of the result.
+exactly 0 (at eps = 0 once r^2 == 0 is replaced by 1).  Source tiles whose
+masses are all zero are skipped, which changes no bit of the result.
 
 A wrapper given CPU tensors runs its plain twin; given CUDA tensors it
 launches its kernel or raises (float32, contiguous).  There is no fallback.
@@ -45,7 +44,8 @@ import math
 import torch
 
 from nbody_tpu_torch.ops import _build
-from nbody_tpu_torch.ops.pairwise import _eps2, _on_cpu, _stream
+from nbody_tpu_torch.ops.pairwise import (_eps2, _on_cpu, _stream,
+                                         sym_partial_shape)
 
 # bound of the plain twins' [groups, targets, tile] temporaries, in
 # elements (2^26 f32 = 256 MB each)
@@ -208,11 +208,15 @@ def group_force(tgt8, slab, g, g_soft, *, tile, mask=None):
     if G == 0 or B == 0:
         return out
     lib = _build.load_library()
+    stage = lib.nbody_k3_stage()
     if mask is None:
         mask_ptr, ti, st = None, B, 1
     else:
         if mask.device != tgt8.device:
             raise ValueError("group_force: mask lies on another device")
+        if tile % stage:
+            raise ValueError(f"group_force: a masked call on the card needs "
+                             f"tile to be a multiple of {stage}, got {tile}")
         mask_u8 = mask.to(torch.uint8).contiguous()
         mask_ptr, ti, st = mask_u8.data_ptr(), B // mask.shape[1], S // tile
     with torch.cuda.device(tgt8.device):
@@ -254,8 +258,8 @@ def quad_force(tgt8, qslab, g, g_soft, *, tile):
 def group_self_force(tgt8, msrc, g, g_soft):
     """tgt8 [G, B, 8], msrc [G, B] -> acc [G, B, 3] (kernel K5): each
     group's Newton-3 self square.  Deterministic run to run.  Scratch: a
-    [G, B/128, B, 3] float32 buffer of per-tile-pair partial sums (0.8 GB at
-    the 1M tier)."""
+    ``sym_partial_shape(B, nbody_sym_tile(), G)`` float32 buffer of
+    per-tile-pair partial sums ([G, B/256, B, 3]: 0.4 GB at the 1M tier)."""
     if tgt8.dim() != 3 or tgt8.shape[2] != 8:
         raise ValueError(f"group_self_force: rows must be [G, B, 8], got "
                          f"{tuple(tgt8.shape)}")
@@ -269,9 +273,8 @@ def group_self_force(tgt8, msrc, g, g_soft):
     if G == 0 or B == 0:
         return out
     lib = _build.load_library()
-    nt = -(-B // lib.nbody_sym_tile())
-    partial = torch.empty((G, nt, B, 3), dtype=torch.float32,
-                          device=tgt8.device)
+    partial = torch.empty(sym_partial_shape(B, lib.nbody_sym_tile(), G),
+                          dtype=torch.float32, device=tgt8.device)
     with torch.cuda.device(tgt8.device):
         rc = lib.nbody_self_force(
             tgt8.data_ptr(), msrc.data_ptr(), G, B,

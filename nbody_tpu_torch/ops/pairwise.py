@@ -205,11 +205,19 @@ def pairwise_acc(pos, mass, g, g_soft):
     return pairwise_acc_targets(pos, pos, mass, g, g_soft)
 
 
+def sym_partial_shape(n: int, tile: int, groups=None) -> tuple:
+    """The scratch of K1 (``groups`` None: [nt, n, 3]) and K5 ([groups,
+    nt, n, 3]): one [n, 3] slot of partial sums per tile of ``tile`` rows
+    (``nbody_sym_tile()``), nt = ceil(n / tile)."""
+    nt = -(-n // tile)
+    return (nt, n, 3) if groups is None else (groups, nt, n, 3)
+
+
 def pairwise_acc_sym(pos, mass, g, g_soft):
     """Newton-3 all-pairs (kernel K1): same result as ``pairwise_acc`` up to
-    f32 summation order, deterministic run to run.  Scratch: an
-    [N/128, N, 3] float32 buffer of per-tile-pair partial sums (0.4 GB at
-    N = 65536)."""
+    f32 summation order, deterministic run to run.  Scratch: a
+    ``sym_partial_shape(N, nbody_sym_tile())`` float32 buffer of
+    per-tile-pair partial sums ([N/256, N, 3]: 0.2 GB at N = 65536)."""
     _check_3d(pos)
     if _on_cpu(pos, mass):
         return pairwise_acc_sym_plain(pos, mass, g, g_soft)
@@ -218,8 +226,8 @@ def pairwise_acc_sym(pos, mass, g, g_soft):
     if n == 0:
         return out
     lib = _build.load_library()
-    nt = -(-n // lib.nbody_sym_tile())
-    partial = torch.empty((nt, n, 3), dtype=torch.float32, device=pos.device)
+    partial = torch.empty(sym_partial_shape(n, lib.nbody_sym_tile()),
+                          dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         rc = lib.nbody_acc_sym(
             pos.data_ptr(), mass.data_ptr(), n, _eps2(g_soft, torch.float32),

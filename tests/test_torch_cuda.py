@@ -69,17 +69,29 @@ def test_k2_targets_bitwise_equal_full_rows(dev):
         assert torch.equal(got, full[idx])
 
 
-@pytest.mark.parametrize("n,cap,kill", [(8191, 8192, 0), (8191, 8192, 37),
-                                        (4999, 5000, 11), (99, 100, 0)])
-def test_k1_matches_plain(dev, n, cap, kill):
-    """Includes ragged sizes (5000 and 100 are not multiples of the 128-wide
-    tile)."""
-    pos, m, _ = _disc(n, cap, kill, dev)
-    got = pw.pairwise_acc_sym(pos, m, G, EPS)
-    assert _rel_err(got, pw.pairwise_acc_sym_plain(pos, m, G, EPS)) < 1e-4
+@pytest.mark.parametrize("n,cap,kill,g_soft", [
+    (8191, 8192, 0, EPS), (8191, 8192, 37, EPS), (4999, 5000, 11, EPS),
+    (99, 100, 0, EPS), (299, 300, 0, EPS), (4999, 5000, 11, 0.0)])
+def test_k1_matches_plain(dev, n, cap, kill, g_soft):
+    """Includes ragged sizes (5000, 300 and 100 are not multiples of the
+    256-wide tile; 300 leaves a ragged tile below the diagonal) and eps = 0
+    through the guarded instance, with coincident particles, held per alive
+    row as K2 is."""
+    pos, m, alive = _disc(n, cap, kill, dev)
+    if g_soft == 0.0:
+        pos = pos.clone()
+        pos[200:205] = pos[100]  # coincident: r^2 == 0 takes the guard
+    got = pw.pairwise_acc_sym(pos, m, G, g_soft)
+    ref = pw.pairwise_acc_sym_plain(pos, m, G, g_soft)
+    assert bool(torch.isfinite(got).all())
+    if g_soft == 0.0:
+        row = (got - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)
+        assert float(row[alive].max()) < 1e-3
+    else:
+        assert _rel_err(got, ref) < 1e-4
     net = (got * m[:, None]).sum(dim=0).abs()
     assert bool((net < 1e-5 * (got.abs() * m[:, None]).sum()).all())
-    assert torch.equal(got, pw.pairwise_acc_sym(pos, m, G, EPS))
+    assert torch.equal(got, pw.pairwise_acc_sym(pos, m, G, g_soft))
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -88,6 +100,11 @@ def test_kernels_reject_what_they_do_not_take(dev):
         pw.pairwise_acc_sym(pos.double(), m.double(), G, EPS)
     with pytest.raises(ValueError):
         pw.pairwise_acc(pos.t().contiguous().t(), m, G, EPS)
+    # K3 looks its mask up once per 128-row stage: a finer source tile
+    tgt8, slab = (torch.from_numpy(a).to(dev) for a in species_slab())
+    mask = torch.zeros((3, 1, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        gf.group_force(tgt8, slab, G, EPS, tile=64, mask=mask)
 
 
 def test_launch_counts(dev):
@@ -123,15 +140,25 @@ def _k3(tgt8, slab, g_soft, tile, mask, dev, plain=False):
               mask=None if mask is None else torch.from_numpy(mask).to(dev))
 
 
-@pytest.mark.parametrize("kind", ["plain", "masked", "eps0", "padding"])
+@pytest.mark.parametrize("kind", ["plain", "masked", "eps0", "padding",
+                                  "ragged-B", "small-TI"])
 def test_k3_matches_plain(dev, kind):
     """The hand-built slabs of test_torch_group_force.py: every row species,
     a block-dual mask over two target tiles, eps = 0 with coincident pairs,
-    and zero-mass padding tiles (bitwise inert)."""
+    and zero-mass padding tiles (bitwise inert); a B and an S that are not
+    multiples of the 128 rows of a block and of a stage, and a mask of
+    4-row target tiles (finer than a block's 128 rows) at eps = 0 (the
+    guarded masked instance)."""
     mask, g_soft, tile = None, EPS, 128
     if kind == "masked":
         tgt8, slab = species_slab(G=2, B=1024, S=512, seed=3)
         mask = np.random.default_rng(4).random((2, 2, 4)) < 0.5
+    elif kind == "ragged-B":
+        tgt8, slab = species_slab(G=3, B=1000, S=640, seed=5)
+    elif kind == "small-TI":
+        tgt8, slab = species_slab(G=2, B=1024, S=512, seed=6)
+        mask = np.random.default_rng(7).random((2, 256, 4)) < 0.5
+        g_soft = 0.0
     elif kind == "eps0":
         tgt8 = np.zeros((1, 128, 8), np.float32)
         tgt8[0, :, :3] = (np.linspace(0.1, 1.0, 128)[:, None]
@@ -207,11 +234,12 @@ def test_bh_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("B,masked,g_soft", [(2048, 0.3, EPS), (1000, 0.0, EPS),
-                                             (512, 0.2, 0.0)])
+                                             (512, 0.2, 0.0), (300, 0.1, EPS)])
 def test_k5_matches_plain(dev, B, masked, g_soft):
-    """Masked source masses, a B that is not a multiple of the 128-row
-    tile, and eps = 0 with coincident rows; momentum within each group;
-    two calls bitwise equal."""
+    """Masked source masses, B that are not multiples of the 256-row tile
+    (1000, and 300: one full tile and a ragged one), and eps = 0 with
+    coincident rows; momentum within each group; two calls bitwise
+    equal."""
     tgt8, msrc = self_square_case(G=3, B=B, masked=masked)
     if g_soft == 0.0:
         tgt8[:, 100:110, :3] = tgt8[:, 50:51, :3]

@@ -135,3 +135,15 @@ def test_engine_dispatch(monkeypatch):
     assert calls == [("k2", 2048), ("k1", 4096), ("k1", 65536),
                      ("k1", 262144), ("k2", 264192),
                      ("k1", 2048), ("k1", 262144), ("k2", 264192)]
+
+
+@pytest.mark.parametrize("n,groups,want", [
+    (65536, None, (256, 65536, 3)),   # K1 at the 65536 main run: 0.2 GB
+    (4999, None, (20, 4999, 3)),      # a ragged last tile
+    (8192, 128, (128, 32, 8192, 3)),  # K5 at the 1M tier: 0.4 GB
+    (300, 2, (2, 2, 300, 3))])
+def test_sym_partial_shape(n, groups, want):
+    """The scratch of K1 and K5: one [n, 3] slot of partial sums per tile
+    of nbody_sym_tile() rows (256 on the card; the library is not loaded
+    here)."""
+    assert pw.sym_partial_shape(n, 256, groups) == want
