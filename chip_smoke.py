@@ -27,7 +27,8 @@ one line and stopping the script with a non-zero exit on failure:
      with its real mask);
   8. K4 (quadrupole slab) against its plain twin: the 1M walk's
      accepted-node slab, the 100k walk's block-dual rows, and an eps = 0
-     scene at 1e-3 scale;
+     scene at 1e-3 scale; and K4's f32 1/r against the twin's float64
+     rsqrt over every positive normal float (mismatches, largest in ulps);
   9. the Barnes-Hut path through the CLI: the flagship configuration (the
      disc at N = 100000 + the star, 100 steps, exact energy) and the 1M
      bench run (N = 1048575 + the star, 10 steps) on ``bh``.  Each run must
@@ -95,7 +96,8 @@ RSQRT_PER_S = 132 * 16 * 1.98e9
 #     column FMAs 6                                                   = 25
 #   quadrupole (K4): e 3, r^2 6, ir^2..ir^7 4, Q e 15, e.Qe 5, w 4,
 #     three (w e - ir^5 u) 12                                         = 49
-#     (its 1/r is a double rsqrt, outside this count)
+#     (its 1/r: one MUFU rsqrt, and the seven FP32 instructions that
+#     round it as the twin's float64 rsqrt does, outside this count)
 #   norm trick (K6): cross 5, r^2 4, ir^3 2, * m 1, four sums 7       = 19
 OPS = {"pair": 18, "sym": 25, "quad": 49, "mxu": 19}
 
@@ -534,8 +536,16 @@ def main() -> int:
                      torch.from_numpy(qr).to(dev), G, 0.0), dict(tile=128),
                     "eps 0 small scale")
     parts.append(f"eps 0 at 1e-3 scale: {e:.2e}")
+    t0 = time.perf_counter()
+    bad, ulps = gf.quad_rsqrt_sweep(dev)
+    sweep_s = time.perf_counter() - t0
+    require(ulps <= 1, f"K4's 1/r differs from the float64 rsqrt by {ulps} "
+            f"ulps ({bad} floats)")
     print("[8 K4] rel err vs plain: " + "; ".join(parts)
-          + "; two calls bitwise equal", flush=True)
+          + "; two calls bitwise equal | 1/r vs (float)rsqrt((double)x) "
+          f"over all {0x7f800000 - 0x00800000} positive normal floats: "
+          f"{bad} mismatches, largest {ulps} ulp ({sweep_s:.3f} s)",
+          flush=True)
 
     # -- 9. the bh main path ------------------------------------------------
     runs = [("100k", 100000, 100, ["--energy", "--energy-exact"]),
@@ -636,6 +646,19 @@ def main() -> int:
         return bound(B * nnz(qslab[..., 3]), OPS["quad"],
                      Gs * B * 24 + qslab.shape[1] * Gs * 40)
 
+    def k4_rows(qslab):
+        """Source rows K4 evaluates for each target (every 128-row stage
+        up to its last massive row, rounded up to the kernel's unroll
+        width), over the massive rows its bound counts."""
+        unroll = _build.load_library().nbody_k4_unroll()
+        Gs, A = qslab.shape[:2]
+        m = (qslab[..., 3] != 0).to(torch.int32)
+        m = torch.nn.functional.pad(m, (0, (-A) % 128)).reshape(Gs, -1, 128)
+        last = torch.where(m != 0, torch.arange(128, device=m.device),
+                           -1).amax(-1) + 1
+        rows_ = torch.clamp(-(-last // unroll) * unroll, max=128)
+        return f"{int(rows_.sum())}/{nnz(qslab[..., 3])} rows evaluated/massive"
+
     a, k = calls_1m["group_force"][0]
     k3_ms, k3_plain = pair(lambda: gf.group_force(*a, **k),
                            lambda: gf.group_force_plain(*a, **k), 10, 1)
@@ -648,14 +671,17 @@ def main() -> int:
     k4_ms, k4_plain = pair(lambda: gf.quad_force(*a, **k),
                            lambda: gf.quad_force_plain(*a, **k), 10, 1)
     k4_bnd = k4_bound(a[0], a[1])
+    k4_ev = k4_rows(a[1])
     a, k = calls_100k["quad_force"][0]
     k4d_ms, k4d_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
     k4d_bnd = k4_bound(a[0], a[1])
+    k4d_ev = k4_rows(a[1])
     a, k = calls_100k["quad_force"][1]
     k4a_ms, k4a_plain = pair(lambda: gf.quad_force(*a, **k),
                              lambda: gf.quad_force_plain(*a, **k), 20, 2)
     k4a_bnd = k4_bound(a[0], a[1])
+    k4a_ev = k4_rows(a[1])
 
     def force_split(n, **over):
         """One bh force call at n, split at the phase marks with CUDA
@@ -687,10 +713,11 @@ def main() -> int:
           f"ms) | K3 masked @100k shapes: {k3m_ms:.3f} ms (plain "
           f"{k3m_plain:.1f} ms, bound {k3m_bnd[0]:.4f} ms) | K4 @1M "
           f"accepted nodes: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, bound "
-          f"{k4_bnd[0]:.3f} ms) | K4 "
+          f"{k4_bnd[0]:.3f} ms; {k4_ev}) | K4 "
           f"@100k dual rows: {k4d_ms:.4f} ms (plain {k4d_plain:.2f} ms, "
-          f"bound {k4d_bnd[0]:.4f} ms), accepted nodes: {k4a_ms:.3f} ms "
-          f"(plain {k4a_plain:.1f} ms, bound {k4a_bnd[0]:.4f} ms) | "
+          f"bound {k4d_bnd[0]:.4f} ms; {k4d_ev}), accepted nodes: "
+          f"{k4a_ms:.3f} ms (plain {k4a_plain:.1f} ms, bound "
+          f"{k4a_bnd[0]:.4f} ms; {k4a_ev}) | "
           f"steps/s: 100k {bh_results['100k']['steps_per_second']:.3f}, 1M "
           f"{bh_results['1M']['steps_per_second']:.3f} | one 1M force call "
           f"(ms): {json.dumps(split)}", flush=True)
@@ -807,7 +834,8 @@ def main() -> int:
             k6_in = (ps, ms_)
         parts.append(f"{cap}: {e:.3e} (median row {med:.2e})")
     print("[12 K6] rel err vs plain on the sorted disc, tiles "
-          f"{pw.mxu_tiles(65536)}: " + "; ".join(parts)
+          f"{pw.mxu_tiles(65536)}, launch (threads, source splits) "
+          f"{pw.mxu_launch(65536, *pw.mxu_tiles(65536))}: " + "; ".join(parts)
           + "; two calls bitwise equal", flush=True)
 
     # -- 13. the near_sym path -----------------------------------------------

@@ -50,14 +50,32 @@
 //     quad_force_pallas (kernel _quad_kernel):
 //         a = G [ M e/r^3 - Q e/r^5 + 5/2 (e^T Q e) e/r^7 ]
 //     over 16-wide traceless-quadrupole rows (x, y, z, M, Qxx, Qyy, Qzz,
-//     Qxy, Qxz, Qyz, 0...) [G, A, 16].  One block per (128-target chunk,
-//     group), one thread per target; the block streams the source rows
-//     through shared memory 128 at a time (x, y, z, M and the six Q
-//     columns), skips zero-mass stages and adds two-level sums as K3 does.
-//     What bounds it: FP32 issue (~40 instructions a pair) and its
-//     double-precision rsqrt: 1/r correctly rounded, because the
-//     quadrupole terms raise it to the 7th power.
+//     Qxy, Qxz, Qyz, 0...) [G, A, 16].  One block per (256-target chunk,
+//     group), two targets a thread: one staged row feeds two pairs (on the
+//     1M shapes 0.41 ms, against 0.49 with one and 0.42 with four, whose
+//     registers cost resident warps; PERF.md).
 //
+//     What bounds it on the card: FP32 issue, ~40 FP32 instructions a pair
+//     against one MUFU rsqrt and three broadcast shared loads.  The design:
+//       - 1/r in f32 (rsqrt_rn): the MUFU estimate and one correction,
+//         which give the bits of the twin's (float)rsqrt((double)r^2) for
+//         all but a few positive normal floats and never differ by more
+//         than 1 ulp (nbody_rsqrt_sweep; PERF.md): the quadrupole terms
+//         raise 1/r to the 7th power, which multiplies rsqrtf's 2-ulp
+//         error seven-fold, and the double rsqrt it replaces ran on the
+//         FP64 pipe (half the FP32 rate) with two conversions;
+//       - specialised on eps as K3 is: at eps^2 >= FLT_MIN no r == 0 guard
+//         and eps^2 seeds the first FMA of r^2; eps = 0 keeps the guard;
+//       - each 128-row stage is evaluated up to its last massive row,
+//         rounded up to an unrolled sub-chunk of 8 rows (four ballots a
+//         warp find it): zero-mass rows carry Q = 0 and add exactly +-0,
+//         so no output bit moves, and a stage with no mass is skipped;
+//       - the rows (x, y, z, M and the six Q, 48 bytes) arrive by cp.async
+//         into a double buffer while the stage before is evaluated: one
+//         barrier a stage.
+//     Summation order as K3: each stage's partial from zero, the partials
+//     in stage order.
+
 // No self-pair index test in either: a self or coincident pair has d = 0
 // and adds exactly 0 (softened.cuh); the TPU's lax.cond split on eps, its
 // (1, 128) VMEM scalar row and its (8, 128)-expanded mask are gone.
@@ -161,78 +179,172 @@ group_force_kernel(const float* __restrict__ tgt8,
   }
 }
 
+// 1/r in f32 with the bits of (float)rsqrt((double)x) for (nearly) every
+// positive normal x: the MUFU estimate y (rsqrt.approx, ~2^-22.9 relative
+// error), then one correction from the residual e = 1 - x y^2, formed
+// without cancellation (x y = h + hl exactly, by an FMA), and
+// y (1 + e/2 + 3e^2/8) rounded once by the last FMA.  Seven FP32
+// instructions beside the MUFU, where the double rsqrt took the FP64 pipe
+// (half the FP32 rate) and two conversions.  nbody_rsqrt_sweep counts the
+// positive normal floats where the two differ.
+__device__ __forceinline__ float rsqrt_rn(float x) {
+  const float y = nbody::rsqrt_ftz(x);
+  const float h = x * y;
+  const float hl = fmaf(x, y, -h);
+  const float e = fmaf(-y, hl, fmaf(-y, h, 1.f));
+  return fmaf(y * fmaf(0.375f, e, 0.5f), e, y);
+}
+
+constexpr int kQuadUnroll = 8;   // rows of an unrolled sub-chunk
+constexpr int kQuadTargets = 2;  // targets a thread
+
+// Stage quadrupole rows [base, base + kChunk) of a group's slab: the first
+// 48 bytes of each 64-byte row (x, y, z, M | Qxx, Qyy, Qzz, Qxy | Qxz, Qyz,
+// 0, 0), zero-filled past A.
+__device__ __forceinline__ void stage_quad(float4 (*dst)[kChunk],
+                                           const float* rows, int base,
+                                           int A) {
+  const int j = base + static_cast<int>(threadIdx.x);
+  const float* r = rows + static_cast<size_t>(j < A ? j : A - 1) * 16;
+  const int bytes = j < A ? 16 : 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) cp_async16(&dst[c][threadIdx.x], r + 4 * c, bytes);
+}
+
+// The rows of a staged chunk that can add anything: up to its last massive
+// row, rounded up to the unroll width (0: the chunk has no mass).  Each
+// warp reads the chunk's 128 masses itself (four ballots), so no barrier
+// is needed beyond the one that published the chunk.
+__device__ __forceinline__ int live_rows(const float4* pm) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  int last = -1;
+#pragma unroll
+  for (int w = 0; w < kChunk / 32; ++w) {
+    const unsigned b = __ballot_sync(0xffffffffu, pm[w * 32 + lane].w != 0.f);
+    if (b) last = w * 32 + 31 - __clz(b);
+  }
+  return (last + kQuadUnroll) / kQuadUnroll * kQuadUnroll;
+}
+
+// kQuadTargets targets a thread (rows t, t + kThreads, ...), one block:
+// kThreads * kQuadTargets targets of group blockIdx.y.
+template <bool kSoft>
 __global__ void __launch_bounds__(kThreads)
 quad_force_kernel(const float* __restrict__ tgt8,
                   const float* __restrict__ qslab, int B, int A, float eps2,
                   float g, float* __restrict__ out) {
-  __shared__ float4 s_pm[kThreads];  // x, y, z, M
-  __shared__ float4 s_q0[kThreads];  // Qxx, Qyy, Qzz, Qxy
-  __shared__ float2 s_q1[kThreads];  // Qxz, Qyz
+  // [buffer][x y z M | Qxx Qyy Qzz Qxy | Qxz Qyz 0 0][row]
+  __shared__ float4 stage[2][3][kChunk];
   const int grp = blockIdx.y;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = row < B;
-  const float* t = tgt8 + (static_cast<size_t>(grp) * B + (active ? row : 0)) * 8;
-  const float xi = t[0], yi = t[1], zi = t[2];
-  const float* rows = qslab + static_cast<size_t>(grp) * A * 16;
-
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int base = 0; base < A; base += kThreads) {
-    const int cnt = min(kThreads, A - base);
-    float4 pm = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 q0 = pm;
-    float2 q1 = make_float2(0.f, 0.f);
-    if (static_cast<int>(threadIdx.x) < cnt) {
-      const float* r = rows + static_cast<size_t>(base + threadIdx.x) * 16;
-      pm = *reinterpret_cast<const float4*>(r);
-      q0 = *reinterpret_cast<const float4*>(r + 4);
-      q1 = *reinterpret_cast<const float2*>(r + 8);
-    }
-    s_pm[threadIdx.x] = pm;
-    s_q0[threadIdx.x] = q0;
-    s_q1[threadIdx.x] = q1;
-    if (__syncthreads_or(pm.w != 0.f)) {
-      float cx = 0.f, cy = 0.f, cz = 0.f;  // the chunk's partial sum
-      for (int k = 0; k < cnt; ++k) {
-        const float4 s = s_pm[k];
-        const float4 qa = s_q0[k];
-        const float2 qb = s_q1[k];
-        const float ex = s.x - xi, ey = s.y - yi, ez = s.z - zi;
-        float r2 = ex * ex + ey * ey + ez * ez + eps2;
-        const bool ok = r2 > 0.f;
-        r2 = ok ? r2 : 1.f;
-        // 1/r correctly rounded (double-precision rsqrt): the quadrupole
-        // terms raise it to the 7th power, which multiplies the 2-ulp error
-        // of rsqrtf seven-fold
-        const float ir = static_cast<float>(rsqrt(static_cast<double>(r2)));
-        const float ir2 = ir * ir;
-        const float ir3 = ir2 * ir;
-        float ir5 = ir3 * ir2;
-        const float ir7 = ir5 * ir2;
-        // Q = [[xx, xy, xz], [xy, yy, yz], [xz, yz, zz]]
-        const float ux = qa.x * ex + qa.w * ey + qb.x * ez;
-        const float uy = qa.w * ex + qa.y * ey + qb.y * ez;
-        const float uz = qb.x * ex + qb.y * ey + qa.z * ez;
-        const float qe = ex * ux + ey * uy + ez * uz;
-        float w = s.w * ir3 + 2.5f * qe * ir7;
-        if (!ok) {
-          w = 0.f;
-          ir5 = 0.f;
-        }
-        cx += w * ex - ir5 * ux;
-        cy += w * ey - ir5 * uy;
-        cz += w * ez - ir5 * uz;
-      }
-      ax += cx;
-      ay += cy;
-      az += cz;
-    }
-    __syncthreads();
+  constexpr int kT = kQuadTargets;
+  const int row0 = blockIdx.x * kThreads * kT + threadIdx.x;
+  float xi[kT], yi[kT], zi[kT], ax[kT], ay[kT], az[kT];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    const int row = min(row0 + t * kThreads, B - 1);
+    const float4 p = *reinterpret_cast<const float4*>(
+        tgt8 + (static_cast<size_t>(grp) * B + row) * 8);
+    xi[t] = p.x;
+    yi[t] = p.y;
+    zi[t] = p.z;
+    ax[t] = ay[t] = az[t] = 0.f;
   }
-  if (active) {
-    float* o = out + (static_cast<size_t>(grp) * B + row) * 3;
-    o[0] = ax * g;
-    o[1] = ay * g;
-    o[2] = az * g;
+  const float* rows = qslab + static_cast<size_t>(grp) * A * 16;
+  const int chunks = (A + kChunk - 1) / kChunk;
+  stage_quad(stage[0], rows, 0, A);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_all();
+    // publishes chunk c; every thread is done with chunk c - 1, whose
+    // buffer the next fetch overwrites
+    __syncthreads();
+    const float4* pm = stage[c & 1][0];
+    const float4* qa = stage[c & 1][1];
+    const float4* qb = stage[c & 1][2];
+    const int live = live_rows(pm);
+    if (c + 1 < chunks) stage_quad(stage[(c + 1) & 1], rows, (c + 1) * kChunk, A);
+    cp_async_commit();
+    // zero-mass rows carry Q = 0 and add exactly +-0: the chunk's sum stops
+    // at its last massive row (a chunk with none is skipped whole)
+    float cx[kT], cy[kT], cz[kT];  // the chunk's partial sums, from zero
+#pragma unroll
+    for (int t = 0; t < kT; ++t) cx[t] = cy[t] = cz[t] = 0.f;
+    for (int k0 = 0; k0 < live; k0 += kQuadUnroll) {
+#pragma unroll
+      for (int k = k0; k < k0 + kQuadUnroll; ++k) {
+        const float4 s = pm[k];
+        const float4 q0 = qa[k];  // Qxx, Qyy, Qzz, Qxy
+        const float2 q1 = make_float2(qb[k].x, qb[k].y);  // Qxz, Qyz
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          const float ex = s.x - xi[t], ey = s.y - yi[t], ez = s.z - zi[t];
+          const float r2 = fmaf(ez, ez, fmaf(ey, ey, fmaf(ex, ex, eps2)));
+          // at eps = 0, r^2 below FLT_MIN sends 1/r^3 to infinity whatever
+          // 1/r's bits; r^2 == 0 (a coincident row) adds nothing
+          const float ir = rsqrt_rn(kSoft ? r2 : fmaxf(r2, FLT_MIN));
+          const float ir2 = ir * ir;
+          const float ir3 = ir2 * ir;
+          float ir5 = ir3 * ir2;
+          const float ir7 = ir5 * ir2;
+          // Q = [[xx, xy, xz], [xy, yy, yz], [xz, yz, zz]]
+          const float ux = q0.x * ex + q0.w * ey + q1.x * ez;
+          const float uy = q0.w * ex + q0.y * ey + q1.y * ez;
+          const float uz = q1.x * ex + q1.y * ey + q0.z * ez;
+          const float qe = ex * ux + ey * uy + ez * uz;
+          float w = s.w * ir3 + 2.5f * qe * ir7;
+          if (!kSoft && !(r2 > 0.f)) {
+            w = 0.f;
+            ir5 = 0.f;
+          }
+          cx[t] += w * ex - ir5 * ux;
+          cy[t] += w * ey - ir5 * uy;
+          cz[t] += w * ez - ir5 * uz;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      ax[t] += cx[t];
+      ay[t] += cy[t];
+      az[t] += cz[t];
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    const int row = row0 + t * kThreads;
+    if (row < B) {
+      float* o = out + (static_cast<size_t>(grp) * B + row) * 3;
+      o[0] = ax[t] * g;
+      o[1] = ay[t] * g;
+      o[2] = az[t] * g;
+    }
+  }
+}
+
+// Counts the positive normal floats x where rsqrt_rn(x) differs from
+// (float)rsqrt((double)x), and the largest difference in ulps.
+__global__ void rsqrt_sweep_kernel(unsigned long long* out) {
+  constexpr unsigned kLo = 0x00800000u, kHi = 0x7f800000u;
+  unsigned long long bad = 0;
+  unsigned worst = 0;
+  for (unsigned b = kLo + blockIdx.x * blockDim.x + threadIdx.x; b < kHi;
+       b += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(b);
+    const int got = __float_as_int(rsqrt_rn(x));
+    const int ref = __float_as_int(static_cast<float>(
+        rsqrt(static_cast<double>(x))));
+    if (got != ref) {
+      ++bad;
+      worst = max(worst, static_cast<unsigned>(abs(got - ref)));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    bad += __shfl_down_sync(0xffffffffu, bad, o);
+    worst = max(worst, __shfl_down_sync(0xffffffffu, worst, o));
+  }
+  if ((threadIdx.x & 31) == 0 && bad) {
+    atomicAdd(out, bad);
+    atomicMax(out + 1, static_cast<unsigned long long>(worst));
   }
 }
 
@@ -278,12 +390,30 @@ int nbody_group_force(const float* tgt8, const float* slab,
   return static_cast<int>(cudaGetLastError());
 }
 
+int nbody_k4_unroll(void) { return kQuadUnroll; }
+
 int nbody_quad_force(const float* tgt8, const float* qslab, int G, int B,
                      int A, float eps2, float g, float* out, void* stream) {
   if (!grid_ok(G, B) || A <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + kThreads - 1) / kThreads, G);
-  quad_force_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tgt8, qslab, B, A, eps2, g, out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kRows = kThreads * kQuadTargets;
+  const dim3 grid((B + kRows - 1) / kRows, G);
+  if (nbody::softened(eps2)) {
+    quad_force_kernel<true><<<grid, kThreads, 0, s>>>(
+        tgt8, qslab, B, A, eps2, g, out);
+  } else {
+    quad_force_kernel<false><<<grid, kThreads, 0, s>>>(
+        tgt8, qslab, B, A, eps2, g, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Test entry: out[0] = mismatches, out[1] = the largest in ulps (zeroed
+// here on `stream`).
+int nbody_rsqrt_sweep(unsigned long long* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(out, 0, 2 * sizeof(unsigned long long), s);
+  rsqrt_sweep_kernel<<<132 * 16, 256, 0, s>>>(out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -129,7 +129,7 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_self_force.argtypes = [p, p, i, i, f, f, p, ctypes.c_longlong,
                                      p, p]
     lib.nbody_self_force.restype = i
-    lib.nbody_acc_mxu.argtypes = [p, p, i, i, i, i, f, f, p, p]
+    lib.nbody_acc_mxu.argtypes = [p, p, i, i, i, i, i, f, f, p, p, p]
     lib.nbody_acc_mxu.restype = i
     lib.nbody_group_force.argtypes = [p, p, p, i, i, i, i, i, i, f, f, p, p]
     lib.nbody_group_force.restype = i
@@ -139,6 +139,10 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_sym_tile.restype = i
     lib.nbody_k3_stage.argtypes = []
     lib.nbody_k3_stage.restype = i
+    lib.nbody_k4_unroll.argtypes = []
+    lib.nbody_k4_unroll.restype = i
+    lib.nbody_rsqrt_sweep.argtypes = [p, p]
+    lib.nbody_rsqrt_sweep.restype = i
     lib.nbody_error_string.argtypes = [i]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

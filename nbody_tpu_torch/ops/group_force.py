@@ -16,8 +16,9 @@ the JAX package's transposed [G, 8, S] slab existed for TPU lanes.
     mask up once per (row, 128-row stage), so on the card ``tile`` is a
     multiple of 128.  Kernel: ``csrc/group_force.cu`` group_force_kernel.
   * ``quad_force`` (K4): a = G [M e/r^3 - Q e/r^5 + 5/2 (eᵀQe) e/r^7] over
-    traceless-quadrupole rows.  Kernel: ``csrc/group_force.cu``
-    quad_force_kernel.
+    traceless-quadrupole rows.  A row of zero mass carries Q = 0 (the
+    walk's do), so the kernel ends each 128-row stage at its last massive
+    row.  Kernel: ``csrc/group_force.cu`` quad_force_kernel.
   * ``group_self_force`` (K5, ``BHConfig.near_sym``): each group against
     its own B rows, a_i = G sum_j msrc_j d_ij / (|d_ij|^2 + eps^2)^{3/2},
     with msrc [G, B] the window-masked source masses.  The kernel evaluates
@@ -253,6 +254,21 @@ def quad_force(tgt8, qslab, g, g_soft, *, tile):
     _build.check(lib, rc, "quad_force")
     LAUNCHES["quad_force"] += 1
     return out
+
+
+def quad_rsqrt_sweep(device=None) -> tuple:
+    """K4's 1/r (``csrc/group_force.cu`` rsqrt_rn) against
+    ``(float)rsqrt((double)x)``, the twin's, over every positive normal
+    float, on the card: (mismatches, largest difference in ulps).  A check
+    of the kernel's arithmetic (chip_smoke.py, tests/test_torch_cuda.py)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nbody_rsqrt_sweep(out.data_ptr(), _stream(device))
+    _build.check(lib, rc, "quad_rsqrt_sweep")
+    bad, ulps = out.tolist()
+    return bad, ulps
 
 
 def group_self_force(tgt8, msrc, g, g_soft):

@@ -238,10 +238,45 @@ def pairwise_acc_sym(pos, mass, g, g_soft):
     return out
 
 
+# K6's launch (csrc/pairwise_mxu.cu): blocks of up to 128 threads of 4
+# targets, 128-source stages, and the source range split until the grid has
+# about _MXU_WANT_BLOCKS blocks
+_MXU_ROWS = 512
+_MXU_TARGETS = 4
+_MXU_STAGE = 128
+_MXU_WANT_BLOCKS = 2048
+
+
+def mxu_launch(n: int, tile_i: int, tile_j: int) -> tuple:
+    """K6's launch on the anchor grid (tile_i, tile_j) of N rows: (threads
+    a block, source splits).  A block's threads * 4 rows lie in one target
+    tile: 512 rows, or the largest power of two dividing tile_i below that
+    (512 when the whole of N is one target tile).  The source tiles are split into
+    the fewest equal runs that give the grid ~2048 blocks (15.5 blocks an
+    SM on an H100's 132): at N = 65536, 128 target blocks x 16 splits of
+    4 source tiles.  On the card tile_j must be a multiple of the kernel's
+    128-source stage, unless N < 128."""
+    if n >= _MXU_STAGE and tile_j % _MXU_STAGE:
+        raise ValueError(f"pairwise_acc_mxu: on the card tile_j must be a "
+                         f"multiple of {_MXU_STAGE}, got {tile_j}")
+    rows = _MXU_ROWS if tile_i == n else math.gcd(tile_i, _MXU_ROWS)
+    if rows % _MXU_TARGETS:
+        raise ValueError(f"pairwise_acc_mxu: on the card tile_i must be a "
+                         f"multiple of {_MXU_TARGETS} or N, got {tile_i}")
+    n_tiles = n // tile_j
+    blocks = -(-n // rows)
+    splits = max(1, min(n_tiles, _MXU_WANT_BLOCKS // blocks))
+    while n_tiles % splits:
+        splits -= 1
+    return rows // _MXU_TARGETS, splits
+
+
 def pairwise_acc_mxu(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
     """pos [N, 3], mass [N] (Morton-sorted by the caller) -> acc [N, 3]
     (kernel K6): the norm-trick all-pairs sum on the anchor grid
-    ``mxu_tiles(N, tile_i, tile_j)``."""
+    ``mxu_tiles(N, tile_i, tile_j)``.  Deterministic run to run.  Scratch:
+    above one source split (``mxu_launch``) a [splits, N, 3] float32 buffer
+    of per-split partial sums (12.6 MB at N = 65536)."""
     _check_3d(pos)
     n = pos.shape[0]
     if tuple(mass.shape) != (n,):
@@ -251,14 +286,19 @@ def pairwise_acc_mxu(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
     if _on_cpu(pos, mass):
         return pairwise_acc_mxu_plain(pos, mass, g, g_soft, tile_i=ti,
                                       tile_j=tj)
+    if pos.data_ptr() % 16 or mass.data_ptr() % 16:
+        raise ValueError("pairwise_acc_mxu: the CUDA kernel needs 16-byte "
+                         "aligned pos and mass")
+    threads, splits = mxu_launch(n, ti, tj)
     out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
-    # a block's rows lie in one target tile
-    rows = 128 if ti == n else math.gcd(ti, 128)
+    partial = (torch.empty((splits, n, 3), dtype=torch.float32,
+                           device=pos.device) if splits > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(pos.device):
         rc = lib.nbody_acc_mxu(
-            pos.data_ptr(), mass.data_ptr(), n, ti, tj, rows,
-            _eps2(g_soft, torch.float32), float(g), out.data_ptr(),
+            pos.data_ptr(), mass.data_ptr(), n, ti, tj, threads, splits,
+            _eps2(g_soft, torch.float32), float(g),
+            None if partial is None else partial.data_ptr(), out.data_ptr(),
             _stream(pos.device))
     _build.check(lib, rc, "pairwise_acc_mxu")
     pairwise_acc_mxu.launches += 1

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Static instruction mix and timed issue use of the port's pair kernels
-(K1, K3, K5) on an NVIDIA GPU, where ``ncu`` is not available.
+(K1, K3, K4, K5, K6) on an NVIDIA GPU, where ``ncu`` is not available.
 
-    python3 scripts/torch_kernel_profile.py [--out FILE]
+    python3 scripts/torch_kernel_profile.py [--out FILE] [--root DIR]
 
-(default ``build/kernel_profile.json``).
+(default ``build/kernel_profile.json``; ``--root`` profiles the
+``nbody_tpu_torch`` package of another checkout, e.g. a parent commit
+unpacked with ``git archive``, built into that checkout's ``build/``).
 
 It builds the kernels (``nbody_tpu_torch/ops/_build.py``), reads their SASS
 with ``cuobjdump -sass`` and, for every loop whose body holds a MUFU.RSQ
-(one rsqrt a pair evaluation), counts the body's instructions by pipe: the
-body's instruction count over its rsqrt count is the issue cost of one pair
-evaluation.  Then it times each kernel's wrapper with CUDA events on random
-inputs at the main path's shapes and derives
+(one rsqrt a pair evaluation; MUFU.RSQ64H for a double rsqrt), counts the
+body's instructions by pipe, leaving out the loops nested in it: the body's
+instruction count over its rsqrt count is the issue cost of one pair
+evaluation.  FP64 arithmetic and the F2F conversions have a pipe of their
+own.  Then it times each kernel's wrapper with CUDA events at the main
+path's shapes (random inputs; K6 on the Morton-sorted 65536 disc; K4 on a
+[128, 2048] quadrupole slab whose massive rows are a prefix of 150-250 rows
+a group, as the 1M walk's accepted nodes are) and derives
 
     issue use = pair evaluations * instructions a pair / 32
                 / (time * SM clock * 4 schedulers * SMs),
@@ -35,6 +41,7 @@ from collections import Counter
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PIPES = {
+    "fp64": ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "F2F", "MUFU.RSQ64H"),
     "fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK"),
     "mufu": ("MUFU",),
     "lsu": ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDSM", "LDGSTS",
@@ -53,7 +60,8 @@ PIPES = {
 def pipe_of(op: str) -> str:
     base = op.split(".")[0]
     for pipe, ops in PIPES.items():
-        if base in ops:
+        if base in ops or any(op.startswith(o + ".") or op == o
+                              for o in ops if "." in o):
             return pipe
     return "other"
 
@@ -90,10 +98,11 @@ def parse_sass(text):
 
 
 def hot_loops(func):
-    """Every backward branch's body that holds a MUFU.RSQ, innermost
-    first: {start, end, insns, rsqrt, per_pair, pipes (per pair)}."""
+    """Every backward branch's body that holds a MUFU.RSQ outside the loops
+    nested in it: {start, end, insns, rsqrt, per_pair, pipes (per pair)},
+    each count over the body less its nested loops."""
     insns, labels = func["insns"], func["labels"]
-    loops = []
+    spans = []
     for addr, op, args in insns:
         if not op.startswith("BRA"):
             continue
@@ -101,27 +110,34 @@ def hot_loops(func):
         if t is None:
             continue
         dest = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
-        if dest is None or dest >= addr:
-            continue
-        body = [(a, o) for a, o, _ in insns if dest <= a <= addr
-                and not o.startswith("NOP")]
-        rsq = sum(o.startswith("MUFU.RSQ") for _, o in body)
+        if dest is not None and dest < addr:
+            spans.append((dest, addr))
+    loops = []
+    for a, b in set(spans):
+        nested = [(c, d) for c, d in spans if a <= c and d <= b
+                  and (c, d) != (a, b)]
+        body = [o for x, o, _ in insns if a <= x <= b
+                and not o.startswith("NOP")
+                and not any(c <= x <= d for c, d in nested)]
+        rsq = sum(o.startswith("MUFU.RSQ") for o in body)
         if not rsq:
             continue
-        pipes = Counter(pipe_of(o) for _, o in body)
+        pipes = Counter(pipe_of(o) for o in body)
         loops.append({
-            "start": hex(dest), "end": hex(addr), "insns": len(body),
+            "start": hex(a), "end": hex(b), "insns": len(body),
             "rsqrt": rsq, "per_pair": round(len(body) / rsq, 3),
             "pipes_per_pair": {k: round(v / rsq, 3)
                                for k, v in sorted(pipes.items())},
-            "opcodes": dict(Counter(o for _, o in body).most_common()),
+            "opcodes": dict(Counter(body).most_common()),
         })
-    span = lambda l: (int(l["start"], 16), int(l["end"], 16))
+    # the pair loop: the most rsqrts a pass, and of loops with as many the
+    # innermost (a compiler may peel a pass of it into the loop around it)
+    inside = lambda l, o: (int(o["start"], 16) <= int(l["start"], 16)
+                           and int(l["end"], 16) <= int(o["end"], 16)
+                           and l is not o)
     for l in loops:
-        a, b = span(l)
-        l["innermost"] = not any(a <= c and d <= b and (c, d) != (a, b)
-                                 for c, d in map(span, loops))
-    loops.sort(key=lambda l: l["insns"])
+        l["innermost"] = not any(inside(o, l) for o in loops)
+    loops.sort(key=lambda l: (-l["rsqrt"], not l["innermost"]))
     return loops
 
 
@@ -173,18 +189,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "kernel_profile.json"))
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose nbody_tpu_torch is profiled")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_kernel_profile: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
+    from nbody_tpu_torch.core.state import ParticleState, SimParams
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import group_force as gf
     from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.scenes import self_gravitating_disc
 
-    _build.load_library()
+    cdll = _build.load_library()
     lib = _build.library_path()
     nvcc_dir = os.path.dirname(_build._nvcc())
     cuobjdump = os.path.join(nvcc_dir, "cuobjdump")
@@ -244,6 +264,44 @@ def main() -> int:
     t5 = rows(128, 8192)
     m5 = t5[..., 3].contiguous()
     unmasked = 1.0 - float(mask.float().mean())
+    # K6: the CLI's disc, in the order brute-pallas-mxu gives the kernel
+    p_, v_, m_ = self_gravitating_disc(65535, seed=0)
+    st = ParticleState.create(p_, v_, m_, capacity=n1, device=dev)
+    me = st.effective_mass()
+    order = pw.mxu_order(st.pos, me, SimParams.create(device=dev).bounds)
+    p6, m6 = st.pos[order].contiguous(), me[order].contiguous()
+
+    def quad_rows(G, A, lo, hi):
+        """[G, A, 16] quadrupole rows whose massive rows are a prefix of
+        lo-hi rows a group; zero-mass rows carry Q = 0, as the walk's do."""
+        q = torch.zeros(G, A, 16)
+        q[..., :3] = torch.randn(G, A, 3, generator=gen) * 4.0
+        q[..., 3] = torch.rand(G, A, generator=gen) + 0.5
+        q[..., 4:10] = torch.randn(G, A, 6, generator=gen) * 1e-2
+        live = torch.randint(lo, hi + 1, (G, 1, 1), generator=gen)
+        return torch.where(torch.arange(A)[None, :, None] < live, q,
+                           0.0).to(dev)
+
+    # K4 at the 1M tier: 128 groups of 8192 targets against [128, 2048]
+    # rows; at the 100k tier: the block-dual rows (4 source tiles a target
+    # tile, each accepted with probability 1/2, in the first 4 of 128 rows)
+    # and the accepted nodes
+    t4, q4 = rows(128, 8192), quad_rows(128, 2048, 150, 250)
+    td, qd = rows(200, 512), quad_rows(200, 128, 4, 4)
+    qd *= (torch.rand(200, 128, 1, generator=gen) < 0.5).to(dev)
+    ta, qa = rows(25, 4096), quad_rows(25, 2048, 250, 300)
+    # the pairs K4 evaluates: the rows of each live 128-row stage up to its
+    # last massive row, rounded up to the kernel's unroll width (a whole
+    # stage before that width existed)
+    unroll = (cdll.nbody_k4_unroll() if hasattr(cdll, "nbody_k4_unroll")
+              else 128)
+
+    def k4_pairs(tgt, q):
+        m = (q[..., 3] != 0).reshape(q.shape[0], -1, 128).cpu()
+        idx = torch.arange(128).expand_as(m)
+        last = torch.where(m, idx, -1).amax(-1) + 1
+        rows_ = torch.clamp(-(-last // unroll) * unroll, max=128)
+        return tgt.shape[1] * int(rows_.sum())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # (label, kernel instance (normalised name), call, pair evaluations,
     # reps); the instance is the one the wrapper launches at eps > 0
@@ -262,6 +320,20 @@ def main() -> int:
         ("K5 [128,8192] (tiles + reduction)", "acc_sym_tiles_kernel<8, 1>",
          lambda: gf.group_self_force(t5, m5, 1.0, eps),
          128 * 8192 * 8193 / 2, 10),
+        ("K4 [128,8192]x[128,2048], 150-250 massive rows a group",
+         "quad_force_kernel<1>",
+         lambda: gf.quad_force(t4, q4, 1.0, eps, tile=512),
+         k4_pairs(t4, q4), 20),
+        ("K4 100k dual rows [200,512]x[200,128], <= 4 massive",
+         "quad_force_kernel<1>",
+         lambda: gf.quad_force(td, qd, 1.0, eps, tile=128),
+         k4_pairs(td, qd), 50),
+        ("K4 100k accepted [25,4096]x[25,2048], 250-300 massive",
+         "quad_force_kernel<1>",
+         lambda: gf.quad_force(ta, qa, 1.0, eps, tile=512),
+         k4_pairs(ta, qa), 50),
+        ("K6 N=65536 sorted disc, tiles 512x1024", "acc_mxu_kernel<1>",
+         lambda: pw.pairwise_acc_mxu(p6, m6, 1.0, eps), n1 * n1, 10),
     ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
@@ -282,7 +354,9 @@ def main() -> int:
         name = names[mangled]
         if not any(k in name for k in ("acc_sym_tiles_kernel",
                                        "group_force_kernel",
-                                       "acc_targets_kernel")):
+                                       "acc_targets_kernel",
+                                       "quad_force_kernel",
+                                       "acc_mxu_kernel")):
             continue
         loops = hot_loops(func)
         info = {"sass_instructions": len(func["insns"]),
@@ -297,19 +371,20 @@ def main() -> int:
     max_clk = float(re.findall(r"(\d+) MHz", smi)[-1]) * 1e6 if "MHz" in smi \
         else 1.98e9
     for t in timed:
-        # the innermost pair loops of the matching kernel instances (the
-        # loops that run the pairs; the enclosing ones add their chunk
-        # bookkeeping): the largest per-pair count, the conservative reading
-        # (a tree without the instance, e.g. an older one, matches by the
-        # kernel's bare name)
+        # the hot loop of the matching kernel instance: the one that runs
+        # the most rsqrts a pass, its nested loops left out (the pair loop;
+        # a peeled or guarded variant nested in it is counted apart).  A
+        # tree without the instance, e.g. an older one, matches by the
+        # kernel's bare name.
         inst = t["kernel"]
         if not any(inst in normalised(n) for n in kernels):
             inst = inst.split("<")[0]
-        per_pair = [l["per_pair"] for n, k in kernels.items()
-                    if inst in normalised(n) for l in k["hot_loops"]
-                    if l["innermost"]]
-        if per_pair:
-            ipp = max(per_pair)
+        hot = [l for n, k in kernels.items() if inst in normalised(n)
+               for l in k["hot_loops"][:1]]
+        if hot:
+            ipp = max(l["per_pair"] for l in hot)
+            t["pipes_per_pair"] = max(hot, key=lambda l: l["per_pair"])[
+                "pipes_per_pair"]
             slots = t["ms"] * 1e-3 * max_clk * 4 * sms
             t["instructions_per_pair"] = ipp
             t["issue_use_at_max_clock"] = (t["pair_evaluations"] * ipp / 32

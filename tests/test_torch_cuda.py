@@ -180,6 +180,60 @@ def test_k3_matches_plain(dev, kind):
         assert torch.equal(got, _k3(tgt8, padded, g_soft, tile, None, dev))
 
 
+def _k4_check(dev, tgt8, qrows, g_soft):
+    t, q = torch.from_numpy(tgt8).to(dev), torch.from_numpy(qrows).to(dev)
+    got = gf.quad_force(t, q, G, g_soft, tile=128)
+    torch.cuda.synchronize()
+    ref = gf.quad_force_plain(t, q, G, g_soft, tile=128)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got.reshape(-1, 3), ref.reshape(-1, 3)) < 5e-5
+    assert torch.equal(got, gf.quad_force(t, q, G, g_soft, tile=128))
+    return got
+
+
+@pytest.mark.parametrize("g_soft", [EPS, 0.0])
+def test_k4_chunk_ends_at_its_last_massive_row(dev, g_soft):
+    """The kernel's sum over a 128-row chunk stops at the chunk's last
+    massive row, rounded up to its unroll width: massive rows that end at
+    every residue of that width, in both chunks of the slab, against the
+    twin; and the zero-mass rows past the end (M = 0, Q = 0) change no bit
+    wherever they sit."""
+    from nbody_tpu_torch.ops import _build
+
+    unroll = _build.load_library().nbody_k4_unroll()
+    tgt8, qrows = cluster_quad_case()
+    rng = np.random.default_rng(8)
+    for r in range(unroll):
+        q = qrows.copy()
+        ends = (3 * unroll + r, 128 + 5 * unroll + r)
+        q[:, ends[0] + 1:128] = 0.0
+        q[:, ends[1] + 1:] = 0.0
+        got = _k4_check(dev, tgt8, q, g_soft)
+        moved = q.copy()
+        for lo, hi in ((ends[0] + 1, 128), (ends[1] + 1, q.shape[1])):
+            moved[:, lo:hi, :3] = rng.uniform(-5.0, 5.0, (2, hi - lo, 3))
+        assert torch.equal(got, gf.quad_force(
+            torch.from_numpy(tgt8).to(dev), torch.from_numpy(moved).to(dev),
+            G, g_soft, tile=128))
+
+
+def test_k4_massive_row_after_zero_mass_rows(dev):
+    """One massive row after 100 zero-mass rows in the first chunk, and a
+    few at the start of the second."""
+    tgt8, qrows = cluster_quad_case()
+    q = np.zeros_like(qrows)
+    q[:, 100] = qrows[:, 100 - 20]
+    q[:, 128:133] = qrows[:, 128:133]
+    _k4_check(dev, tgt8, q, EPS)
+
+
+def test_k4_rsqrt_against_double_on_every_normal_float(dev):
+    """K4's f32 1/r against the twin's (float)rsqrt((double)x), swept over
+    every positive normal float: at most 1 ulp apart."""
+    bad, ulps = gf.quad_rsqrt_sweep(dev)
+    assert ulps <= 1, (bad, ulps)
+
+
 @pytest.mark.parametrize("case", ["eps0-small-scale", "clusters"])
 def test_k4_matches_plain(dev, case):
     """The eps = 0 scene at 1e-3 scale of test_pallas_kernels.py, and rows
@@ -267,12 +321,16 @@ def _sorted_disc(n, capacity, kill, dev):
 
 @pytest.mark.parametrize("n,cap,kill,tiles", [
     (2047, 2048, 0, (512, 1024)), (2047, 2048, 37, (128, 128)),
-    (99, 100, 0, (512, 1024)), (4095, 4096, 0, (64, 1024))])
+    (99, 100, 0, (512, 1024)), (4095, 4096, 0, (64, 1024)),
+    (383, 384, 0, (512, 1024)), (2559, 2560, 0, (512, 1024)),
+    (63, 64, 0, (512, 1024))])
 def test_k6_matches_plain(dev, n, cap, kill, tiles):
     """The kernel forms r^2 with the twin's roundings, so the two differ
     only in summation order, which the fold A - (p - c) sum s magnifies in
-    the rows far from their anchor.  Includes a single tile (N = 100) and
-    64-row target tiles (blocks of 64 threads)."""
+    the rows far from their anchor.  Includes a single tile below one
+    128-source stage (N = 100, 64), 64-row target tiles (blocks of 16
+    threads), and grids whose source tiles are narrower than 1024 (384:
+    128 x 128; 2560: 512 x 512)."""
     pos, m = _sorted_disc(n, cap, kill, dev)
     ti, tj = tiles
     got = pw.pairwise_acc_mxu(pos, m, G, EPS, tile_i=ti, tile_j=tj)
@@ -286,6 +344,57 @@ def test_k6_matches_plain(dev, n, cap, kill, tiles):
         with pytest.raises(ValueError, match="divisible"):
             pw.pairwise_acc_mxu(pos[:300].contiguous(),
                                 m[:300].contiguous(), G, EPS)
+
+
+@pytest.mark.parametrize("cap,tiles,splits", [
+    (1024, (512, 1024), 1), (2048, (512, 1024), 2), (4096, (512, 1024), 4),
+    (8192, (512, 1024), 8), (16384, (512, 1024), 16),
+    (32768, (512, 1024), 32), (8192, (512, 128), 64)])
+def test_k6_source_splits(dev, cap, tiles, splits):
+    """Every number of source splits the launch takes on these grids, each
+    held against the twin as chip_smoke.py holds N = 65536 (16 splits)."""
+    pos, m = _sorted_disc(cap - 1, cap, 0, dev)
+    ti, tj = pw.mxu_tiles(cap, *tiles)
+    assert pw.mxu_launch(cap, ti, tj)[1] == splits
+    got = pw.pairwise_acc_mxu(pos, m, G, EPS, tile_i=ti, tile_j=tj)
+    torch.cuda.synchronize()
+    ref = pw.pairwise_acc_mxu_plain(pos, m, G, EPS, tile_i=ti, tile_j=tj)
+    assert _rel_err(got, ref) < 1e-3
+    rn = ref.norm(dim=1)
+    med = ((got - ref).norm(dim=1) / rn.clamp_min(float(rn.median())))
+    assert float(med.median()) < 1e-5
+    assert torch.equal(got, pw.pairwise_acc_mxu(pos, m, G, EPS, tile_i=ti,
+                                                tile_j=tj))
+
+
+def test_k6_eps0_coincident(dev):
+    """eps = 0 (rsqrtf, the guarded instance) with coincident particles:
+    their r^2 is exactly 0 in the kernel and the twin alike and the pair is
+    skipped.  Unsoftened close pairs make the fold A - (p - c) sum s cancel
+    far more than at eps > 0, so each summation order carries its own
+    rounding there: the kernel is held, as the twin is against the JAX
+    kernel (test_torch_pairwise_mxu.py), to the twin's own accuracy
+    against the float64 direct sum, row by row on the alive rows."""
+    pos, m = _sorted_disc(2047, 2048, 37, dev)
+    pos = pos.clone()
+    pos[200:205] = pos[100]
+    got = pw.pairwise_acc_mxu(pos, m, G, 0.0)
+    torch.cuda.synchronize()
+    ref = pw.pairwise_acc_mxu_plain(pos, m, G, 0.0)
+    exact = pw.pairwise_acc_targets_plain(pos.double(), pos.double(),
+                                          m.double(), G, 0.0, tile=256)
+    alive = m > 0
+    assert bool(torch.isfinite(got[alive]).all())
+
+    def row_err(a):
+        rn = exact.norm(dim=1)
+        e = (a.double() - exact).norm(dim=1) / rn.clamp_min(float(rn.median()))
+        return e[alive].cpu().numpy()
+
+    e_got, e_ref = row_err(got), row_err(ref)
+    for q, k in ((50, 1.5), (90, 1.5), (99, 2.5), (100, 2.5)):
+        assert np.percentile(e_got, q) <= k * np.percentile(e_ref, q) + 1e-7
+    assert torch.equal(got, pw.pairwise_acc_mxu(pos, m, G, 0.0))
 
 
 def test_near_sym_on_card_matches_cpu(dev):

@@ -109,6 +109,34 @@ def test_mxu_tiles_shrink_rule():
     assert pw.mxu_tiles(6144) == (512, 1024)
 
 
+@pytest.mark.parametrize("n,tiles,launch", [
+    (65536, (512, 1024), (128, 16)),  # the main path: 128 blocks x 16
+    (2048, (512, 1024), (128, 2)),
+    (1024, (512, 1024), (128, 1)),
+    (32768, (512, 1024), (128, 32)),
+    (8192, (512, 128), (128, 64)),
+    (4096, (64, 1024), (16, 4)),
+    (384, (128, 128), (32, 3)),
+    (100, (100, 100), (128, 1))])
+def test_mxu_launch(n, tiles, launch):
+    """K6's launch on the card: threads a block (4 targets each, every
+    block's rows in one target tile) and source splits (whole source
+    tiles, dividing their number, ~2048 blocks in all)."""
+    ti, tj = pw.mxu_tiles(n, *tiles)
+    threads, splits = pw.mxu_launch(n, ti, tj)
+    assert (threads, splits) == launch
+    rows = 4 * threads
+    assert ti == n or ti % rows == 0
+    assert (n // tj) % splits == 0
+
+
+def test_mxu_launch_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pw.mxu_launch(4096, 512, 64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pw.mxu_launch(4096, 2, 1024)
+
+
 @pytest.mark.parametrize("n", [300, 2050])
 def test_k6_refuses_ragged_n(n):
     """Above 128 rows an N that is not a multiple of 128 would leave the
