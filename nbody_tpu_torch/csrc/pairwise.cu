@@ -4,18 +4,45 @@
 // All compute, for every target i,
 //     a_i = G * sum_j m_j (p_j - p_i) / (|p_j - p_i|^2 + eps^2)^{3/2}
 // in fp32, with m_j = 0 for dead and padding sources.  A self or coincident
-// pair has d = 0 and so contributes exactly 0.  K2 applies the guard
-// r2 > 0 ? r2 : 1 always (with eps > 0 it never fires); K1 and K5 are
-// specialised on eps and apply it only at eps = 0 (softened.cuh).
+// pair has d = 0 and so contributes exactly 0.  Each kernel is specialised
+// on eps (softened.cuh): the r2 > 0 ? r2 : 1 guard runs only at eps = 0.
 //
-// K2  acc_targets_kernel  replaces nbody_tpu/ops/pairwise.py
-//     pairwise_acc_pallas_targets (and pairwise_acc_pallas, the K = N case):
-//     K targets x N sources, one direction.  One thread owns one target in
-//     registers; the block walks the sources in order, staging 128 of them
-//     at a time in shared memory as float4 (x, y, z, m).  Every target adds
-//     its sources in the same order j = 0..N-1 whatever its place in the
-//     target set, so a sampled-target call is bitwise equal to the matching
-//     rows of the full call.
+// K2  acc_targets_kernel + sym_reduce_kernel  replace
+//     nbody_tpu/ops/pairwise.py pairwise_acc_pallas_targets (and
+//     pairwise_acc_pallas, the K = N case; body _kernel): K targets x N
+//     sources, one direction.  The TPU kernel carries each target tile's
+//     sum across a sequential grid dimension over source tiles; here the
+//     source range is cut into `splits` chunks of `chunk` sources (a
+//     multiple of the 128-source stage), one per blockIdx.y, so that a few
+//     thousand targets (the sampled oracle of the bh checks) still give
+//     a thousand blocks.  Each (target block, chunk) block writes its
+//     chunk's sums to a [splits, batch, 3] scratch, and sym_reduce_kernel
+//     adds the chunks in order and applies G (one chunk: the block writes
+//     G * sum itself).  Targets go through in batches (65536 from the
+//     wrapper), so the scratch stays the same size at any N or K.  No
+//     atomics: runs are bit-reproducible.
+//
+//     Summation order: a target adds each 128-source stage of its chunk in
+//     order j into a sum that starts from zero, adds the stage sums in
+//     order, and the chunks are added in order.  (One chain over a whole
+//     chunk grows its rounding error with the chunk's length; with the
+//     stage sums the 4096 x 2^20 oracle stays within 1e-4 of a float64
+//     sum, max-row over mean row, as chip_smoke.py phase 6 checks.)  The
+//     chunk plan (ops/pairwise.py targets_launch) is a function of N alone,
+//     so a target's sum does not depend on K or on its place in the target
+//     set: a sampled-target call is bitwise equal to the matching rows of
+//     the full call.
+//
+//     A block of kTargetsThreads (64) threads holds kTargetsPerThread (4)
+//     targets a thread (rows r0 + t + q * kTargetsThreads) in registers, so
+//     one broadcast LDS.128 of a staged source (x, y, z, m) serves four
+//     pairs (one and two targets a thread, and 128 or 256 threads a block,
+//     measured slower: PERF.md).  The sources are packed once a call into
+//     a float4 [splits * chunk, 4] scratch (pack_sources_kernel; the [N, 3]
+//     rows are 12 bytes wide, too narrow for a 16-byte cp.async), zero-mass
+//     pads past N, so every stage is whole; they arrive through cp.async
+//     in a ring of kStages stages, kStages - 1 in flight while one is
+//     evaluated, one barrier a stage.  Idle lanes past K load row K - 1 and write nothing.
 //
 // K1  acc_sym_tiles_kernel + sym_reduce_kernel  replace
 //     nbody_tpu/ops/pairwise.py pairwise_acc_pallas_sym (_kernel_sym):
@@ -64,17 +91,18 @@
 //     floats (0.4 GB at the 1M tier, G = 128, B = 8192).
 //
 // What bounds them on the card: instruction issue, not bytes.  A tile pair
-// of K1 reads 8 KB and evaluates 32768 unordered pairs; the MUFU rsqrt (16 a
-// clock per SM) is one in every ~18 instructions.  K2 issues ~21
-// instructions a pair (SASS: scripts/torch_kernel_profile.py; PERF.md).
-// K1 and K5 keep theirs few: eight rows a lane let one rotation of the
-// 7-float packet serve eight pairs (7/8 shuffle a pair), and the
-// specialisation on eps (softened.cuh) leaves out the r == 0 guard and
-// rsqrtf's subnormal scaling at eps > 0: 16 FP32 instructions and one MUFU
-// a pair.  Each block holds 256 rows of positions, masses and sums in
-// registers (two blocks an SM).  The 256-wide tiles keep the partial
-// buffer to 2 * nt * N * 12 bytes of traffic (0.4 GB at N = 65536), about
-// a twentieth of K1's time with its reduction.
+// of K1 reads 8 KB and evaluates 32768 unordered pairs; a 2 KB stage of K2
+// serves kTargetsRows targets; the MUFU rsqrt (16 a clock per SM) is one
+// in every ~13-18 instructions.  The specialisation on eps (softened.cuh)
+// leaves out the r == 0 guard and rsqrtf's subnormal scaling at eps > 0:
+// K2 then issues 12 FP32 instructions and one MUFU a pair, and a quarter
+// of a shared load (SASS: scripts/torch_kernel_profile.py; PERF.md).  K1 and K5
+// keep theirs few with eight rows a lane, so one rotation of the 7-float
+// packet serves eight pairs (7/8 shuffle a pair): 16 FP32 instructions and
+// one MUFU a pair.  Each K1 block holds 256 rows of positions, masses and
+// sums in registers (two blocks an SM).  The 256-wide tiles keep the
+// partial buffer to 2 * nt * N * 12 bytes of traffic (0.4 GB at N =
+// 65536), about a twentieth of K1's time with its reduction.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -83,7 +111,13 @@
 
 namespace {
 
-constexpr int kTargetsThreads = 128;  // K2: targets per block
+constexpr int kStage = 128;            // K2: sources a stage (2 KB)
+constexpr int kStages = 4;             // K2: the ring; kStages - 1 in flight
+constexpr int kUnroll = 32;            // K2: sources of one unrolled step
+constexpr int kTargetsThreads = 64;    // K2: threads a block
+constexpr int kTargetsPerThread = 4;   // K2: targets a thread
+constexpr int kTargetsRows =           // K2: targets a block
+    kTargetsPerThread * kTargetsThreads;
 constexpr int kSymTile = 256;         // K1: rows = cols of a tile pair
 constexpr int kSymRows = kSymTile / 32;   // K1: rows per lane (all of bi's)
 constexpr int kSymWarps = kSymTile / 32;  // K1: warps, 32 columns each
@@ -91,50 +125,107 @@ constexpr int kSymThreads = 32 * kSymWarps;  // = kSymTile: a row each to add
 static_assert(kSymThreads == kSymTile, "one thread per row in the row sums");
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float inv_r3(float dx, float dy, float dz,
-                                        float eps2) {
-  float r2 = dx * dx + dy * dy + dz * dz + eps2;
-  r2 = r2 > 0.f ? r2 : 1.f;
-  const float ir = rsqrtf(r2);
-  return ir * ir * ir;
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
 }
 
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// K2's packed sources: (x, y, z, m) for j < n, and zero-mass pads up to
+// len at kFar, where |d|^2 overflows, 1/r^3 is 0 and a pad adds exactly 0
+// to any target (a pad at the origin would overflow 1/r^3 at eps = 0 for a
+// target within ~1e-13 of it, and 0 * inf is NaN).
+constexpr float kFar = 1e30f;
+
+__global__ void pack_sources_kernel(const float* __restrict__ pos,
+                                    const float* __restrict__ mass, int n,
+                                    int len, float4* __restrict__ src) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= len) return;
+  src[j] = j < n ? make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2],
+                               mass[j])
+                 : make_float4(kFar, kFar, kFar, 0.f);
+}
+
+// One block: kTargetsRows targets against the packed sources of chunk
+// blockIdx.y, [chunk * y, chunk * (y + 1)).  One chunk (gridDim.y == 1):
+// out [k, 3] gets G * sum; several: out is the [gridDim.y, k, 3] scratch
+// and gets the chunk's sum.
+template <bool kSoft>
 __global__ void __launch_bounds__(kTargetsThreads)
 acc_targets_kernel(const float* __restrict__ pos_t, int k,
-                   const float* __restrict__ pos,
-                   const float* __restrict__ mass, int n, float eps2, float g,
-                   float* __restrict__ out) {
-  __shared__ float4 src[kTargetsThreads];
-  const int i = blockIdx.x * kTargetsThreads + threadIdx.x;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (i < k) {
-    xi = pos_t[3 * i];
-    yi = pos_t[3 * i + 1];
-    zi = pos_t[3 * i + 2];
+                   const float4* __restrict__ src, int chunk, float eps2,
+                   float g, float* __restrict__ out) {
+  __shared__ float4 ring[kStages][kStage];
+  constexpr int kT = kTargetsPerThread;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kTargetsRows;
+  float xi[kT], yi[kT], zi[kT], ax[kT], ay[kT], az[kT];
+#pragma unroll
+  for (int q = 0; q < kT; ++q) {
+    const int i = min(r0 + t + q * kTargetsThreads, k - 1);
+    xi[q] = pos_t[3 * i];
+    yi[q] = pos_t[3 * i + 1];
+    zi[q] = pos_t[3 * i + 2];
+    ax[q] = ay[q] = az[q] = 0.f;
   }
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int base = 0; base < n; base += kTargetsThreads) {
-    const int j = base + threadIdx.x;
-    if (j < n) {
-      src[threadIdx.x] =
-          make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], mass[j]);
+  src += static_cast<size_t>(blockIdx.y) * chunk;
+  const int stages = chunk / kStage;
+  auto fetch = [&](int st) {
+    for (int c = t; c < kStage; c += kTargetsThreads) {
+      cp_async16(&ring[st % kStages][c], src + st * kStage + c);
     }
-    __syncthreads();
-    const int cnt = min(kTargetsThreads, n - base);
-    for (int t = 0; t < cnt; ++t) {
-      const float4 s = src[t];
-      const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-      const float w = inv_r3(dx, dy, dz, eps2) * s.w;
-      ax = fmaf(w, dx, ax);
-      ay = fmaf(w, dy, ay);
-      az = fmaf(w, dz, az);
-    }
-    __syncthreads();
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < stages) fetch(st);
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  if (i < k) {
-    out[3 * i] = ax * g;
-    out[3 * i + 1] = ay * g;
-    out[3 * i + 2] = az * g;
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kStages - 2>();
+    // stage st has arrived for every thread's copies, and every thread is
+    // done with stage st - 1, whose slot the next fetch overwrites
+    __syncthreads();
+    if (st + kStages - 1 < stages) fetch(st + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float4* b = ring[st % kStages];
+    float sx[kT], sy[kT], sz[kT];
+#pragma unroll
+    for (int q = 0; q < kT; ++q) sx[q] = sy[q] = sz[q] = 0.f;
+#pragma unroll kUnroll
+    for (int r = 0; r < kStage; ++r) {
+      const float4 s = b[r];
+#pragma unroll
+      for (int q = 0; q < kT; ++q) {
+        const float dx = s.x - xi[q], dy = s.y - yi[q], dz = s.z - zi[q];
+        const float w = nbody::softened_ir3<kSoft>(dx, dy, dz, eps2) * s.w;
+        sx[q] = fmaf(w, dx, sx[q]);
+        sy[q] = fmaf(w, dy, sy[q]);
+        sz[q] = fmaf(w, dz, sz[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kT; ++q) {
+      ax[q] += sx[q];
+      ay[q] += sy[q];
+      az[q] += sz[q];
+    }
+  }
+  const float scale = gridDim.y == 1 ? g : 1.f;
+  float* dst = out + static_cast<size_t>(blockIdx.y) * k * 3;
+#pragma unroll
+  for (int q = 0; q < kT; ++q) {
+    const int i = r0 + t + q * kTargetsThreads;
+    if (i < k) {
+      dst[3 * i] = ax[q] * scale;
+      dst[3 * i + 1] = ay[q] * scale;
+      dst[3 * i + 2] = az[q] * scale;
+    }
   }
 }
 
@@ -311,14 +402,53 @@ extern "C" {
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
+// K2: pos_t [k, 3] targets, pos [n, 3] / mass [n] sources, out [k, 3].
+// The plan (ops/pairwise.py targets_launch): `splits` chunks of `chunk`
+// sources (a multiple of 128) that cover [0, n), none of them empty.
+// Scratch: src4 holds splits * chunk * 4 floats and, above one chunk,
+// partial holds the [splits, batch, 3] partial sums of a batch of targets,
+// batch = partial_len / (3 * splits): the targets go through in batches of
+// that many, each chunked and then reduced.
 int nbody_acc_targets(const float* pos_t, int k, const float* pos,
-                      const float* mass, int n, float eps2, float g,
-                      float* out, void* stream) {
-  if (k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (k + kTargetsThreads - 1) / kTargetsThreads;
-  acc_targets_kernel<<<blocks, kTargetsThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      pos_t, k, pos, mass, n, eps2, g, out);
+                      const float* mass, int n, int chunk, int splits,
+                      float eps2, float g, float* src4, long long src4_len,
+                      float* partial, long long partial_len, float* out,
+                      void* stream) {
+  const long long padded = static_cast<long long>(chunk) * splits;
+  const long long batch =
+      splits > 1 ? partial_len / (3LL * splits) : static_cast<long long>(k);
+  if (k <= 0 || n <= 0 || chunk <= 0 || chunk % kStage != 0 ||
+      splits <= 0 || splits > 65535 || padded < n ||
+      padded - chunk >= n || padded > 0x7fffffffLL ||
+      4 * padded > src4_len || src4 == nullptr ||
+      reinterpret_cast<size_t>(src4) % 16 != 0 ||
+      (splits > 1 && (partial == nullptr || batch < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float4* src = reinterpret_cast<float4*>(src4);
+  const int len = static_cast<int>(padded);
+  pack_sources_kernel<<<(len + 255) / 256, 256, 0, s>>>(pos, mass, n, len,
+                                                        src);
+  const bool soft = nbody::softened(eps2);
+  for (int k0 = 0; k0 < k; k0 += static_cast<int>(batch)) {
+    const int kk = static_cast<int>(
+        batch < k - k0 ? batch : static_cast<long long>(k - k0));
+    const dim3 grid((kk + kTargetsRows - 1) / kTargetsRows, splits);
+    const float* tgt = pos_t + 3LL * k0;
+    float* dst = splits > 1 ? partial : out + 3LL * k0;
+    if (soft) {
+      acc_targets_kernel<true><<<grid, kTargetsThreads, 0, s>>>(
+          tgt, kk, src, chunk, eps2, g, dst);
+    } else {
+      acc_targets_kernel<false><<<grid, kTargetsThreads, 0, s>>>(
+          tgt, kk, src, chunk, eps2, g, dst);
+    }
+    if (splits > 1) {
+      sym_reduce_kernel<<<dim3((3 * kk + 255) / 256, 1), 256, 0, s>>>(
+          partial, kk, splits, g, out + 3LL * k0);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

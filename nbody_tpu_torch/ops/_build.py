@@ -122,7 +122,9 @@ def load_library() -> ctypes.CDLL:
         )
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nbody_acc_targets.argtypes = [p, i, p, p, i, f, f, p, p]
+    lib.nbody_acc_targets.argtypes = [p, i, p, p, i, i, i, f, f, p,
+                                      ctypes.c_longlong, p,
+                                      ctypes.c_longlong, p, p]
     lib.nbody_acc_targets.restype = i
     lib.nbody_acc_sym.argtypes = [p, p, i, f, f, p, ctypes.c_longlong, p, p]
     lib.nbody_acc_sym.restype = i

@@ -178,10 +178,42 @@ def pairwise_acc_mxu_plain(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
 # ---------------------------------------------------------------------------
 
 
+# K2's launch (csrc/pairwise.cu): blocks of 64 threads of 4 targets
+# (kTargetsThreads, kTargetsPerThread there) and 128-source stages
+# (kStage), and the source range cut into at most 64 chunks of at least 256
+# sources.  Above one chunk the targets go through in batches of
+# _K2_BATCH, whose [splits, batch, 3] partial sums (50 MB at 64 chunks) are
+# the scratch, whatever N and K are
+_K2_THREADS = 64
+_K2_TARGETS = 4
+_K2_STAGE = 128
+_K2_MIN_CHUNK = 256
+_K2_MAX_SPLITS = 64
+_K2_BATCH = 1 << 16
+
+
+def targets_launch(n: int) -> tuple:
+    """K2's source chunks for N sources: (chunk, splits).  Chunk c holds
+    sources [c * chunk, min(N, (c + 1) * chunk)): every target sums a chunk
+    stage by stage (128 sources each, in order), and the chunks in order,
+    so the plan, a function of N alone, fixes every target's summation
+    order whatever K is.  At N = 2^20, 64 chunks of 16384 (the 4096-row
+    oracle: 16 target blocks x 64 = 1024 blocks, ~7.8 an SM); at 65536, 64
+    of 1024 (the full call: 16384 blocks); at 2048, 8 of 256 (64 blocks)."""
+    n = max(n, 1)
+    splits = min(_K2_MAX_SPLITS, -(-n // _K2_MIN_CHUNK))
+    chunk = -(-n // splits)
+    chunk = -(-chunk // _K2_STAGE) * _K2_STAGE
+    return chunk, -(-n // chunk)
+
+
 def pairwise_acc_targets(pos_t, pos, mass, g, g_soft):
     """Exact direct sum onto a target set: pos_t [K, 3] targets vs pos [N, 3]
     / mass [N] sources -> acc [K, 3] (kernel K2).  A sampled-row call gives
-    bitwise the rows of the full call: the sampled exact oracle."""
+    bitwise the rows of the full call: the sampled exact oracle.  Scratch:
+    the packed sources [splits * chunk, 4] and, above one chunk, the
+    chunks' partial sums of a batch of targets [splits, min(K, 65536), 3]
+    (``targets_launch``)."""
     _check_3d(pos_t, pos)
     if _on_cpu(pos_t, pos, mass):
         return pairwise_acc_targets_plain(pos_t, pos, mass, g, g_soft)
@@ -189,11 +221,20 @@ def pairwise_acc_targets(pos_t, pos, mass, g, g_soft):
     out = torch.empty((k, 3), dtype=torch.float32, device=pos.device)
     if k == 0 or n == 0:
         return out.zero_()
+    chunk, splits = targets_launch(n)
+    src4 = torch.empty((splits * chunk, 4), dtype=torch.float32,
+                       device=pos.device)
+    partial = (torch.empty((splits, min(k, _K2_BATCH), 3),
+                           dtype=torch.float32, device=pos.device)
+               if splits > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(pos.device):
         rc = lib.nbody_acc_targets(
-            pos_t.data_ptr(), k, pos.data_ptr(), mass.data_ptr(), n,
-            _eps2(g_soft, torch.float32), float(g), out.data_ptr(),
+            pos_t.data_ptr(), k, pos.data_ptr(), mass.data_ptr(), n, chunk,
+            splits, _eps2(g_soft, torch.float32), float(g), src4.data_ptr(),
+            src4.numel(),
+            None if partial is None else partial.data_ptr(),
+            0 if partial is None else partial.numel(), out.data_ptr(),
             _stream(pos.device))
     _build.check(lib, rc, "pairwise_acc_targets")
     pairwise_acc_targets.launches += 1

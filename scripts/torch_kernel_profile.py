@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Static instruction mix and timed issue use of the port's pair kernels
-(K1, K3, K4, K5, K6) on an NVIDIA GPU, where ``ncu`` is not available.
+(K1-K6) on an NVIDIA GPU, where ``ncu`` is not available.
 
     python3 scripts/torch_kernel_profile.py [--out FILE] [--root DIR]
 
@@ -17,7 +17,9 @@ evaluation.  FP64 arithmetic and the F2F conversions have a pipe of their
 own.  Then it times each kernel's wrapper with CUDA events at the main
 path's shapes (random inputs; K6 on the Morton-sorted 65536 disc; K4 on a
 [128, 2048] quadrupole slab whose massive rows are a prefix of 150-250 rows
-a group, as the 1M walk's accepted nodes are) and derives
+a group, as the 1M walk's accepted nodes are; K2 full at 65536 and 2048,
+and as the 4096-row oracle of a 2^20 state and the 1024-row one of the
+65536 state) and derives
 
     issue use = pair evaluations * instructions a pair / 32
                 / (time * SM clock * 4 schedulers * SMs),
@@ -25,8 +27,9 @@ a group, as the 1M walk's accepted nodes are) and derives
 the share of the card's warp-instruction issue slots the hot loop would
 fill at that time (static counts: predicated-off and skipped work are not
 seen).  Theoretical occupancy comes from the ``-Xptxas -v`` registers and
-shared memory in ``build.log``.  Prints one JSON object and writes it to
-``--out``.
+shared memory in ``build.log``.  It also reports the K2 oracle's own error
+at 4096 x 2^20 against the plain sum in float64.  Prints one JSON object
+and writes it to ``--out``.
 """
 
 import argparse
@@ -192,6 +195,7 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose nbody_tpu_torch is profiled")
     args = ap.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -270,6 +274,19 @@ def main() -> int:
     me = st.effective_mass()
     order = pw.mxu_order(st.pos, me, SimParams.create(device=dev).bounds)
     p6, m6 = st.pos[order].contiguous(), me[order].contiguous()
+    # K2 as the sampled oracle of a 2^20 bh state: 4096 of its rows
+    # (the disc + star as the CLI builds it, 4096 sorted alive rows drawn
+    # as chip_smoke.py's bh checks draw them)
+    p_, v_, m_ = self_gravitating_disc(1048575, seed=0)
+    st20 = ParticleState.create(p_, v_, m_, device=dev)
+    p20, m20 = st20.pos, st20.effective_mass()
+    n20 = p20.shape[0]
+    alive20 = np.nonzero(st20.alive.cpu().numpy())[0]
+    t20 = p20[torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+        alive20, 4096, replace=False)), device=dev)].contiguous()
+    # K2 as brute-pallas below 4096, and as the 65536 run's 1024-row oracle
+    p2k, m2k = pos[:2048].contiguous(), m1[:2048].contiguous()
+    t1k = pos[:1024].contiguous()
 
     def quad_rows(G, A, lo, hi):
         """[G, A, 16] quadrupole rows whose massive rows are a prefix of
@@ -334,6 +351,20 @@ def main() -> int:
          k4_pairs(ta, qa), 50),
         ("K6 N=65536 sorted disc, tiles 512x1024", "acc_mxu_kernel<1>",
          lambda: pw.pairwise_acc_mxu(p6, m6, 1.0, eps), n1 * n1, 10),
+        ("K2 full N=65536 (pack + chunks + reduction)",
+         "acc_targets_kernel<1>",
+         lambda: pw.pairwise_acc(pos, m1, 1.0, eps), n1 * n1, 10),
+        ("K2 oracle 4096 x 2^20 (pack + chunks + reduction)",
+         "acc_targets_kernel<1>",
+         lambda: pw.pairwise_acc_targets(t20, p20, m20, 1.0, eps),
+         4096 * n20, 3),
+        ("K2 full N=2048 (pack + chunks + reduction)",
+         "acc_targets_kernel<1>",
+         lambda: pw.pairwise_acc(p2k, m2k, 1.0, eps), 2048 * 2048, 200),
+        ("K2 1024 x 65536 (pack + chunks + reduction)",
+         "acc_targets_kernel<1>",
+         lambda: pw.pairwise_acc_targets(t1k, pos, m1, 1.0, eps),
+         1024 * n1, 50),
     ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
@@ -349,6 +380,18 @@ def main() -> int:
                       "sm_clock_mhz_after": clk,
                       "device_ms_by_kernel": by_kernel(fn, reps)})
 
+    # the oracle's own error: max-row |a - a64| over the mean row |a64|,
+    # a64 the plain sum in float64
+    got = pw.pairwise_acc_targets(t20, p20, m20, 1.0, eps).double()
+    ref = pw.pairwise_acc_targets_plain(t20.double(), p20.double(),
+                                        m20.double(), 1.0, eps, tile=128)
+    k2_vs_f64 = ((got - ref).norm(dim=1).max()
+                 / ref.norm(dim=1).mean()).item()
+    row = ((got - ref).norm(dim=1) / ref.norm(dim=1)).cpu()
+    k2_oracle_error = {"rel_err_vs_float64": k2_vs_f64,
+                       "row_median_vs_float64": row.median().item(),
+                       "row_max_vs_float64": row.max().item()}
+
     kernels = {}
     for mangled, func in funcs.items():
         name = names[mangled]
@@ -363,7 +406,10 @@ def main() -> int:
                 "hot_loops": loops}
         if mangled in ptx:
             info.update(ptx[mangled])
-            threads = 256 if "acc_sym_tiles" in name else 128
+            # K2's block: _K2_THREADS (a tree without it ran 128 threads)
+            threads = (256 if "acc_sym_tiles" in name else
+                       getattr(pw, "_K2_THREADS", 128)
+                       if "acc_targets" in name else 128)
             info.update(occupancy(ptx[mangled]["registers"],
                                   ptx[mangled]["smem"], threads))
         kernels[name] = info
@@ -390,11 +436,12 @@ def main() -> int:
             t["issue_use_at_max_clock"] = (t["pair_evaluations"] * ipp / 32
                                            / slots)
     result = {"device": smi.strip(), "sms": sms, "timed": timed,
-              "kernels": kernels}
+              "k2_oracle_error": k2_oracle_error, "kernels": kernels}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    brief = {"device": result["device"], "timed": timed, "kernels": {
+    brief = {"device": result["device"], "timed": timed,
+             "k2_oracle_error": k2_oracle_error, "kernels": {
         n: {k: v for k, v in i.items() if k != "hot_loops"}
         | {"hot_loops": [{k: v for k, v in l.items() if k != "opcodes"}
                          for l in i["hot_loops"]]}

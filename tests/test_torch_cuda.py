@@ -45,8 +45,11 @@ def _rel_err(got, ref):
     return float((got - ref).norm(dim=1).max() / ref.norm(dim=1).mean())
 
 
-@pytest.mark.parametrize("n,cap,kill", [(2000, 2048, 37), (300, 333, 0)])
+@pytest.mark.parametrize("n,cap,kill", [(2000, 2048, 37), (300, 333, 0),
+                                        (39999, 40000, 37)])
 def test_k2_matches_plain(dev, n, cap, kill):
+    """40000 sources make 63 chunks of 640 (the last one ragged,
+    ``pw.targets_launch``); 333 one ragged chunk."""
     pos, m, alive = _disc(n, cap, kill, dev)
     got = pw.pairwise_acc(pos, m, G, EPS)
     torch.cuda.synchronize()
@@ -58,15 +61,41 @@ def test_k2_matches_plain(dev, n, cap, kill):
     assert float(row[alive].max()) < 1e-3
 
 
-def test_k2_targets_bitwise_equal_full_rows(dev):
-    pos, m, _ = _disc(4000, 4096, 0, dev)
-    full = pw.pairwise_acc(pos, m, G, EPS)
-    for k in (1, 129, 1000):
+@pytest.mark.parametrize("cap,g_soft", [(4096, EPS), (40000, EPS),
+                                        (40000, 0.0)])
+def test_k2_targets_bitwise_equal_full_rows(dev, cap, g_soft):
+    """Sampled targets give bitwise the full call's rows, and two calls are
+    bitwise equal, at one chunk-plan whole (4096: 16 chunks of 256) and
+    one with a ragged last chunk (40000), and at eps = 0 with coincident
+    rows through the guarded instance.  70000 targets (drawn with
+    replacement) go through in two batches."""
+    pos, m, _ = _disc(cap - 37, cap, 37, dev)
+    if g_soft == 0.0:
+        pos = pos.clone()
+        pos[200:205] = pos[100]
+    full = pw.pairwise_acc(pos, m, G, g_soft)
+    assert bool(torch.isfinite(full).all())
+    assert torch.equal(full, pw.pairwise_acc(pos, m, G, g_soft))
+    for k in (1, 129, 1000, 4096, 70000):
         idx = torch.as_tensor(
-            np.random.default_rng(k).choice(4096, k, replace=False),
+            np.random.default_rng(k).choice(cap, k, replace=k > cap),
             device=dev)
-        got = pw.pairwise_acc_targets(pos[idx], pos, m, G, EPS)
+        got = pw.pairwise_acc_targets(pos[idx], pos, m, G, g_soft)
         assert torch.equal(got, full[idx])
+
+
+def test_k2_long_source_range_matches_float64(dev):
+    """512 alive rows against the 2^20 disc, the shape of the bh checks'
+    oracle: summed stage by stage, K2 stays within 1e-4 of the float64 sum
+    (max row over mean row), as the plain twin does; one f32 chain over
+    all 2^20 sources drifts two orders of magnitude past that."""
+    pos, m, alive = _disc(1048575, 1 << 20, 0, dev)
+    idx = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+        np.nonzero(alive.cpu().numpy())[0], 512, replace=False)), device=dev)
+    got = pw.pairwise_acc_targets(pos[idx].contiguous(), pos, m, G, EPS)
+    ref = pw.pairwise_acc_targets_plain(pos[idx].double(), pos.double(),
+                                        m.double(), G, EPS, tile=128)
+    assert _rel_err(got.double(), ref) < 1e-4
 
 
 @pytest.mark.parametrize("n,cap,kill,g_soft", [

@@ -4,6 +4,8 @@ the CPU; and the wrappers' CPU dispatch.  The CUDA kernels themselves are
 held against these twins on the card (chip_smoke.py, tests/test_torch_cuda.py).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -147,3 +149,31 @@ def test_sym_partial_shape(n, groups, want):
     of nbody_sym_tile() rows (256 on the card; the library is not loaded
     here)."""
     assert pw.sym_partial_shape(n, 256, groups) == want
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 2047, 2048, 40000, 65536,
+                               262145, 1 << 20])
+def test_k2_launch_plan(n):
+    """K2's chunks cover [0, N) in order, none of them empty, each a whole
+    number of 128-source stages; the plan takes N alone (so a target's
+    summation order cannot depend on K), and a full call's partial sums,
+    [splits, min(N, batch), 3], stay within 50 MB at any N."""
+    assert list(inspect.signature(pw.targets_launch).parameters) == ["n"]
+    chunk, splits = pw.targets_launch(n)
+    assert chunk > 0 and chunk % pw._K2_STAGE == 0
+    spans = [(c * chunk, min(n, (c + 1) * chunk)) for c in range(splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a < b for a, b in spans)
+    assert all(b == a for (_, b), (a, _) in zip(spans, spans[1:]))
+    assert splits * min(n, pw._K2_BATCH) * 12 <= 50 * 2**20
+
+
+@pytest.mark.parametrize("k,n,least", [
+    (4096, 1 << 20, 264),  # the bh checks' oracle: two blocks an SM
+    (1024, 65536, 132),    # the 65536 run's oracle
+    (65536, 65536, 132),   # a full call
+    (2048, 2048, 17)])     # brute-pallas below 4096: more than 16, the
+                           # grid of one block per 128 targets
+def test_k2_launch_fills_the_card(k, n, least):
+    _, splits = pw.targets_launch(n)
+    assert -(-k // (pw._K2_THREADS * pw._K2_TARGETS)) * splits >= least
