@@ -5,8 +5,8 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs fifteen phases, each printing
-one line and stopping the script with a non-zero exit on failure:
+(one nvcc per source, all at once), then runs eighteen phases, each
+printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
   2. build: compile and load the kernels;
@@ -40,10 +40,12 @@ one line and stopping the script with a non-zero exit on failure:
      rsqrt over every positive normal float (mismatches, largest in ulps);
   9. the Barnes-Hut path through the CLI: the flagship configuration (the
      disc at N = 100000 + the star, 100 steps, exact energy) and the 1M
-     bench run (N = 1048575 + the star, 10 steps) on ``bh``.  Each run must
-     go through its kernels; on its final state the walk drops nothing,
-     two force calls are bitwise equal, and the forces of 4096 sampled
-     alive rows meet the accuracy envelope against the K2 oracle;
+     bench run (N = 1048575 + the star, 10 steps, ``--energy``, which
+     resolves to the tree estimator) on ``bh``.  Each run must go through
+     its kernels; the 1M drift must be finite and below 5e-3; on its final
+     state the walk drops nothing, two force calls are bitwise equal, and
+     the forces of 4096 sampled alive rows meet the accuracy envelope
+     against the K2 oracle;
  10. times: K3 and K4 beside their twins and bounds at the shapes of both
      runs, steps/s of both runs, and one 1M force call split by phase;
  11. K5 (each group's Newton-3 self square, ``near_sym``) against its plain
@@ -68,7 +70,23 @@ one line and stopping the script with a non-zero exit on failure:
  15. times: K5 at the 1M and 100k shapes, K3 on the 1M ``near_sym`` slab,
      K6 at 65536, each beside its twin; steps/s with and without
      ``near_sym`` at both sizes; one 1M ``near_sym`` force call split by
-     phase.
+     phase;
+ 16. the tree potential (``bh_potential``, plain torch on the card) on the
+     100k and 2^20 discs against the exact pair PE (f32 row tiles summed in
+     float64): the relative difference within 3e-3 and 5e-3, the walk
+     counters, both times; the calls enqueue with no host sync and two are
+     bitwise equal;
+ 17. the compensated stepper: (a) the two-body orbit of
+     tests/test_compensated.py, 10000 steps through K2, plain and
+     compensated against the float64 native oracle (compensated below 0.2x
+     plain); (b) ``--compensated`` on the 65536 disc (K1; drift below 1e-5,
+     steps/s beside plain); (c) ``--compensated --energy`` on the 2^20 disc
+     (K3, K4; its final forces in phase 9's envelope; steps/s beside
+     plain); (d) a run saved, loaded and continued equals the whole run
+     bitwise; (e) one step under an elementwise force is bitwise the CPU's;
+ 18. momentum, angular momentum and centre of mass over the 65536 K1 run
+     within a bound from f32 rounding; the trajectory recorder on 20 bh
+     steps of the 100k disc; ``--profile``'s trace holds K1.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -78,6 +96,7 @@ before the last is the card's name and power limit as nvidia-smi reports
 them; the last line is the result JSON.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -180,12 +199,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from nbody_tpu_torch import Simulation, cli
+    from nbody_tpu_torch.core import diagnostics as diag
+    from nbody_tpu_torch.core import energy as core_energy
+    from nbody_tpu_torch.core import stepper
     from nbody_tpu_torch.core.state import ParticleState, SimParams
+    from nbody_tpu_torch.engines import get_engine
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import group_force as gf
     from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import traversal as tt
     from nbody_tpu_torch.ops.traversal import BHConfig, bh_accel
     from nbody_tpu_torch.scenes import self_gravitating_disc
+    from nbody_tpu_torch.utils import native
 
     dev = torch.device("cuda", 0)
 
@@ -696,8 +721,10 @@ def main() -> int:
           flush=True)
 
     # -- 9. the bh main path ------------------------------------------------
+    # the 1M run's --energy resolves to the tree estimator (capacity above
+    # 262144): a drift figure that may be estimator bias below ~1e-4
     runs = [("100k", 100000, 100, ["--energy", "--energy-exact"]),
-            ("1M", 1048575, 10, [])]
+            ("1M", 1048575, 10, ["--energy"])]
     # sampled force error |da| / max(|a|, median |a|) against the K2 oracle,
     # held to the envelope of tests/test_barnes_hut.py: median 2e-3, p99
     # 5e-2 (the 1M run reads a median of ~1.7e-3; PERF.md section 2)
@@ -705,34 +732,16 @@ def main() -> int:
     bh_launches = {}
     bh_results = {}
     parts = []
-    for label, n, steps, extra in runs:
-        ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
-                                               dir=_build.BUILD_DIR)
-        ckpt = os.path.join(ckpt_dir.name, "state.pkl")
-        gf.reset_launch_counts()
-        r = cli.main(["-n", str(n), "--engine", "bh", "--steps", str(steps),
-                      *extra, "--json", "--device", "cuda", "--save", ckpt])
-        counts = gf.launch_counts()
-        bh_launches[label] = counts
-        bh_results[label] = r
-        if label == "100k":
-            require(counts["group_force_masked"] >= steps,
-                    f"100k: masked K3 launched {counts}")
-            require(counts["quad_force"] >= 2 * steps,
-                    f"100k: K4 launched {counts}")
-            require(r["energy_drift"] < 1e-3,
-                    f"100k energy drift {r['energy_drift']:.3e}")
-        else:
-            require(counts["group_force"] >= steps,
-                    f"1M: unmasked K3 launched {counts}")
-            require(counts["quad_force"] >= steps,
-                    f"1M: K4 launched {counts}")
-        nums = [v for v in r.values() if isinstance(v, float)]
-        require(all(map(math.isfinite, nums)), f"non-finite result {r}")
+
+    def bh_final_check(label, n, ckpt):
+        """The final state of a bh CLI run (its checkpoint): finite, the
+        walk drops nothing, two force calls bitwise equal, and the forces
+        of 4096 sampled alive rows within the envelope against the K2
+        oracle.  Returns (state, walk counters, median, p99, K2
+        launches)."""
         pos, vel, mass = self_gravitating_disc(n, seed=0)
         sim = Simulation(pos, vel, mass, engine="bh", device="cuda",
                          dt=3e-2, g_soft=EPS).load(ckpt)
-        ckpt_dir.cleanup()
         st, params = sim.state, sim.settings
         require(bool(torch.isfinite(st.pos).all()
                      & torch.isfinite(st.vel).all()),
@@ -762,8 +771,40 @@ def main() -> int:
         require(med < median_bound and p99 < 5e-2,
                 f"{label}: sampled force error median {med:.3e}, p99 "
                 f"{p99:.3e}")
-        drift = (f", drift {r['energy_drift']:.3e}" if "energy_drift" in r
-                 else "")
+        return st, four, med, p99, k2_checks
+
+    for label, n, steps, extra in runs:
+        ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                               dir=_build.BUILD_DIR)
+        ckpt = os.path.join(ckpt_dir.name, "state.pkl")
+        gf.reset_launch_counts()
+        r = cli.main(["-n", str(n), "--engine", "bh", "--steps", str(steps),
+                      *extra, "--json", "--device", "cuda", "--save", ckpt])
+        counts = gf.launch_counts()
+        bh_launches[label] = counts
+        bh_results[label] = r
+        if label == "100k":
+            require(counts["group_force_masked"] >= steps,
+                    f"100k: masked K3 launched {counts}")
+            require(counts["quad_force"] >= 2 * steps,
+                    f"100k: K4 launched {counts}")
+            require(r["energy_drift"] < 1e-3,
+                    f"100k energy drift {r['energy_drift']:.3e}")
+        else:
+            require(counts["group_force"] >= steps,
+                    f"1M: unmasked K3 launched {counts}")
+            require(counts["quad_force"] >= steps,
+                    f"1M: K4 launched {counts}")
+            require(r["energy_method"] == "bh",
+                    f"1M: --energy resolved to {r['energy_method']}")
+            require(r["energy_drift"] < 5e-3,
+                    f"1M energy drift (tree estimator) {r['energy_drift']:.3e}")
+        nums = [v for v in r.values() if isinstance(v, float)]
+        require(all(map(math.isfinite, nums)), f"non-finite result {r}")
+        st, four, med, p99, k2_checks = bh_final_check(label, n, ckpt)
+        ckpt_dir.cleanup()
+        drift = (f", drift {r['energy_drift']:.3e} ({r['energy_method']})"
+                 if "energy_drift" in r else "")
         parts.append(
             f"{label} ({r['n']} + star, {steps} steps, capacity "
             f"{st.capacity}): launches {counts}, {r['steps_per_second']:.2f}"
@@ -1191,6 +1232,340 @@ def main() -> int:
           f"{k6_plain:.1f} ms, bound {k6_bnd[0]:.4f} ms) | steps/s (bh, "
           f"near_sym, near_sym, bh): {rate_s} | one 1M near_sym force call "
           f"(ms): {json.dumps(split_sym)}", flush=True)
+
+    # -- 16. the tree potential ----------------------------------------------
+    def exact_pe64(st, params, tile=512):
+        """The exact pair PE (ms, value): the port's f32 row tiles, each
+        against the rows after it (every unordered pair once), the tile
+        sums added in float64."""
+        pos, m = st.pos, st.effective_mass()
+        n = pos.shape[0]
+        ids = torch.arange(tile, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for s0 in range(0, n, tile):
+            e = min(s0 + tile, n)
+            total += core_energy._pe_row_tile(
+                pos[s0:e], m[s0:e], ids[:e - s0], pos[s0:], m[s0:],
+                params.g, params.eps2).double()
+        value = float(total)
+        return (time.perf_counter() - t0) * 1e3, value
+
+    def phi_call(st, params):
+        cfg = BHConfig.auto_for(st.capacity, multipole="mono", fb_cap=2048)
+        return tt.bh_potential(st.pos, st.effective_mass(), params.bounds,
+                               params.theta2, params.g, params.g_soft, cfg)
+
+    parts = []
+    for label, n, limit in (("100k", 100000, 3e-3), ("2^20", 1048575, 5e-3)):
+        st, params = bh_state(n)
+        phi_call(st, params)  # warm
+        torch.cuda.synchronize()
+        # enqueued without a host sync; the scalar is the only thing read
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            u1, stats = phi_call(st, params)
+            u2, _ = phi_call(st, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(u1.is_cuda and all(v.is_cuda for v in stats.values()),
+                f"phi {label}: the result left the card")
+        require(torch.equal(u1, u2), f"phi {label}: two calls differ")
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u_bh = float(phi_call(st, params)[0])
+            reps.append((time.perf_counter() - t0) * 1e3)
+        require(u_bh == float(u1), f"phi {label}: a timed call differs")
+        pe_ms, u_ex = exact_pe64(st, params)
+        rel = abs(u_bh - u_ex) / abs(u_ex)
+        four = {k: int(v) for k, v in stats.items()}
+        require(math.isfinite(u_bh) and rel < limit,
+                f"phi {label}: U {u_bh:.9e} vs exact {u_ex:.9e}: rel "
+                f"{rel:.3e} (limit {limit:.0e}); walk {four}")
+        parts.append(f"{label} (capacity {st.capacity}): U_bh {u_bh:.9e}, "
+                     f"exact (f64 tile sum) {u_ex:.9e}, rel {rel:.3e} (limit "
+                     f"{limit:.0e}), walk {four}; estimator "
+                     f"{[round(t, 2) for t in reps]} ms, exact PE "
+                     f"{pe_ms:.1f} ms")
+    smi = nvidia_smi()
+    print(f"[16 tree potential] {smi} | " + " | ".join(parts)
+          + "; no host sync in the calls, two calls bitwise equal",
+          flush=True)
+
+    # -- 17. the compensated stepper ----------------------------------------
+    parts = []
+    # (a) tests/test_compensated.py's two-body circular orbit: eps 0, dt
+    # 1e-3, 10000 steps on brute-pallas (K2 every step, capacity 128),
+    # plain and compensated, each against the float64 oracle at the same
+    # (f32-rounded) dt
+    p2 = np.array([[-0.5, 0.0, 0.0], [0.5, 0.0, 0.0]])
+    v2 = np.array([[0.0, -0.5, 0.0], [0.0, 0.5, 0.0]])
+    m2 = np.array([0.5, 0.5])
+    st = ParticleState.create(p2, v2, m2, device=dev)
+    params = SimParams.create(dt=1e-3, g_soft=0.0, bounds_width=10.0,
+                              device=dev)
+    force = get_engine("brute-pallas").force
+    pw.reset_launch_counts()
+    out_p = stepper.make_run(force)(st, params, 10_000)
+    out_c, _ = stepper.make_run_comp(force)(st, stepper.init_comp(st),
+                                            params, 10_000)
+    orbit_k2 = pw.launch_counts()["pairwise_acc_targets"]
+    require(orbit_k2 >= 20_000, f"the orbit runs launched K2 {orbit_k2}x")
+    t0 = time.perf_counter()
+    ref, _, _ = native.oracle_run(p2, v2, m2, method="brute", steps=10_000,
+                                  dt=params.dt, g_soft=0.0)
+    oracle_s = time.perf_counter() - t0
+    err_p = float(np.abs(out_p.pos[:2].double().cpu().numpy() - ref).max())
+    err_c = float(np.abs(out_c.pos[:2].double().cpu().numpy() - ref).max())
+    require(err_c < 0.2 * err_p, f"orbit vs the float64 oracle: compensated "
+            f"{err_c:.3e}, plain {err_p:.3e}")
+    # what the compensated orbit reads when the force is the float64 pair
+    # sum rounded to f32 (no kernel): the floor K2's f32 force sets
+    out_c64, _ = stepper.make_run_comp(
+        lambda p, m, prm: pw.pairwise_acc_plain(
+            p.double(), m.double(), prm.g, prm.g_soft).float())(
+        st, stepper.init_comp(st), params, 10_000)
+    err_c64 = float(np.abs(out_c64.pos[:2].double().cpu().numpy()
+                           - ref).max())
+    parts.append(f"(a) orbit, 10000 steps, K2 launched {orbit_k2}x: max "
+                 f"|pos - oracle| plain {err_p:.3e}, compensated {err_c:.3e} "
+                 f"({err_c / err_p:.3f}x; oracle build + run "
+                 f"{oracle_s:.2f} s); compensated with the float64 force "
+                 f"rounded to f32 {err_c64:.3e}")
+
+    # (b) the 65536 direct sum through the CLI, K1 every step; then plain,
+    # compensated, compensated, plain without energies for the rates
+    base = ["-n", "65535", "--engine", "brute-pallas", "--steps", "25",
+            "--json", "--device", "cuda"]
+    pw.reset_launch_counts()
+    comp65 = cli.main([*base, "--compensated", "--energy", "--energy-exact"])
+    comp65_k1 = pw.launch_counts()["pairwise_acc_sym"]
+    require(comp65_k1 >= 25, f"the compensated 65536 run launched K1 "
+            f"{comp65_k1}x")
+    require(math.isfinite(comp65["energy_drift"])
+            and comp65["energy_drift"] < 1e-5,
+            f"compensated 65536 drift {comp65['energy_drift']:.3e}")
+    rates65 = {}
+    for comp in (False, True, True, False):
+        r = cli.main([*base, *(["--compensated"] if comp else [])])
+        rates65.setdefault(comp, []).append(r["steps_per_second"])
+    parts.append(f"(b) 65536, 25 steps: K1 launched {comp65_k1}x, drift "
+                 f"compensated {comp65['energy_drift']:.3e} (plain, phase 5: "
+                 f"{big['energy_drift']:.3e}); steps/s plain "
+                 f"{[round(x, 2) for x in rates65[False]]}, compensated "
+                 f"{[round(x, 2) for x in rates65[True]]}")
+
+    # (c) the 2^20 bh run, compensated, with the tree-estimator energy
+    ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                           dir=_build.BUILD_DIR)
+    ckpt = os.path.join(ckpt_dir.name, "state.pkl")
+    base = ["-n", "1048575", "--engine", "bh", "--steps", "10", "--json",
+            "--device", "cuda"]
+    gf.reset_launch_counts()
+    comp1m = cli.main([*base, "--compensated", "--energy", "--save", ckpt])
+    comp1m_counts = gf.launch_counts()
+    require(comp1m_counts["group_force"] >= 10
+            and comp1m_counts["quad_force"] >= 10,
+            f"the compensated 1M run launched {comp1m_counts}")
+    require(comp1m["energy_method"] == "bh"
+            and math.isfinite(comp1m["energy_drift"])
+            and comp1m["energy_drift"] < 5e-3,
+            f"compensated 1M energy {comp1m}")
+    _, four, med, p99, _ = bh_final_check("compensated 1M", 1048575, ckpt)
+    ckpt_dir.cleanup()
+    parts.append(f"(c) 2^20 bh, 10 steps: launches {comp1m_counts}, drift "
+                 f"{comp1m['energy_drift']:.3e} (tree estimator; plain, phase "
+                 f"9: {bh_results['1M']['energy_drift']:.3e}); final state "
+                 f"{four}, forces vs K2 oracle median {med:.3e} p99 "
+                 f"{p99:.3e}")
+    # the TwoSum's cost on the bh runs: plain, compensated, compensated,
+    # plain, without energies (65536 in (b))
+    rates_bh = {}
+    for label, n, steps in (("100k", 100000, 100), ("2^20", 1048575, 10)):
+        for comp in (False, True, True, False):
+            r = cli.main(["-n", str(n), "--engine", "bh", "--steps",
+                          str(steps), "--json", "--device", "cuda",
+                          *(["--compensated"] if comp else [])])
+            rates_bh.setdefault((label, comp), []).append(
+                round(r["steps_per_second"], 3))
+    parts.append("TwoSum cost, bh steps/s (plain, compensated, compensated, "
+                 "plain): " + "; ".join(
+                     f"{label} plain {rates_bh[(label, False)]}, compensated "
+                     f"{rates_bh[(label, True)]}"
+                     for label in ("100k", "2^20")))
+
+    # (d) a compensated run saved mid-way, loaded and continued equals the
+    # uninterrupted run bitwise (K1 is bit-reproducible)
+    p65, v65, m65 = self_gravitating_disc(65535, seed=0)
+
+    def comp_sim():
+        return Simulation(p65, v65, m65, engine="brute-pallas",
+                          device="cuda", dt=3e-2, g_soft=EPS,
+                          compensated=True)
+
+    whole = comp_sim()
+    whole.run(10)
+    half = comp_sim()
+    half.run(5)
+    ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                           dir=_build.BUILD_DIR)
+    ckpt = os.path.join(ckpt_dir.name, "state.pkl")
+    half.save(ckpt)
+    resumed = comp_sim().load(ckpt)
+    ckpt_dir.cleanup()
+    resumed.run(5)
+    for a, b, what in ((whole.state.pos, resumed.state.pos, "pos"),
+                       (whole.state.vel, resumed.state.vel, "vel"),
+                       (whole._lo[0], resumed._lo[0], "pos_lo"),
+                       (whole._lo[1], resumed._lo[1], "vel_lo")):
+        require(torch.equal(a, b), f"resumed compensated run: {what} differs")
+    lo_max = float(whole._lo[0].abs().max())
+    require(lo_max > 0.0, "the compensated run's low words stayed zero")
+    parts.append(f"(d) 65536, 5 + save/load + 5 steps bitwise equal to 10 "
+                 f"(pos, vel and both low words; max |pos_lo| {lo_max:.2e})")
+
+    # (e) one compensated step under an elementwise force: card == CPU
+    words = []
+    for d in (dev, torch.device("cpu")):
+        st = ParticleState.create(p65, v65, m65, device=d)
+        params = SimParams.create(dt=3e-2, bounds_width=3.0, device=d)
+        lo = tuple(torch.full_like(st.pos, 1e-9) for _ in range(2))
+        s1, l1 = stepper.make_step_comp(lambda p, m, prm: -p)(st, lo, params)
+        words.append([t.cpu() for t in (s1.pos, s1.vel, s1.alive, *l1)])
+    require(all(torch.equal(a, b) for a, b in zip(*words)),
+            "one compensated step: card and CPU differ")
+    parts.append(f"(e) one step under -pos, 65536 rows "
+                 f"({int(words[0][2].sum())} alive after the cull): card "
+                 "and CPU bitwise equal")
+    smi = nvidia_smi()
+    print(f"[17 compensated] {smi} | " + " | ".join(parts), flush=True)
+
+    # -- 18. diagnostics and the profiler -----------------------------------
+    parts = []
+    # momentum, angular momentum and centre of mass over the 65536 K1 run,
+    # evaluated on float64 copies of the f32 states (the change of the
+    # state, not the rounding of the sums), against a bound from f32
+    # rounding (PERF.md section 2): per step, with u = 2^-24 and gamma =
+    # 515 (K1's longest addition chain, 256 rows and 256 tile partials, and
+    # the pair term's three roundings),
+    #   |dP| <= sqrt3 u (2 sum m|v| + (gamma + 2) dt A)
+    #   |dL| <= sqrt3 u (4 sum m|r||v| + R (gamma + 2) dt A)
+    #   |dC - P0 T / M| <= (2 sqrt3 u sum m|r| + bound_P T) / M
+    # where A = sum_i m_i sum_j m_j |r_ij| / (r_ij^2 + eps^2)^1.5 (every
+    # pair force's size, both directions), R the largest |r|, T the run's
+    # time
+    u = 2.0 ** -24
+    gamma = 515
+
+    def as64(st):
+        return dataclasses.replace(
+            st, pos=st.pos.double(), vel=st.vel.double(),
+            mass=st.mass.double(), acc=st.acc.double(),
+            time=st.time.double())
+
+    def pair_force_sum(pos, m, eps2, tile=1024):
+        pos, m = pos.double(), m.double()
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for s0 in range(0, pos.shape[0], tile):
+            d = pos[None, :, :] - pos[s0:s0 + tile, None, :]
+            r2 = (d * d).sum(-1)
+            w = torch.where(r2 > 0, (r2 + eps2) ** -1.5, 0.0)
+            total += (m[s0:s0 + tile, None] * m[None, :] * r2.sqrt()
+                      * w).sum()
+        return float(total)
+
+    sim = Simulation(p65, v65, m65, engine="brute-pallas", device="cuda",
+                     dt=3e-2, g_soft=EPS)
+    s0 = sim.state
+    d0 = diag.diagnostics(s0, sim.settings)
+    q0 = {k: f(as64(s0)) for k, f in (("P", diag.momentum),
+                                       ("L", diag.angular_momentum),
+                                       ("C", diag.center_of_mass))}
+    m = s0.effective_mass().double()
+    vn, rn = s0.vel.double().norm(dim=1), s0.pos.double().norm(dim=1)
+    mass_tot = float(m.sum())
+    sum_mv, sum_mrv = float((m * vn).sum()), float((m * rn * vn).sum())
+    sum_mr, r_max = float((m * rn).sum()), float(rn[s0.alive].max())
+    a_sum = pair_force_sum(s0.pos, s0.effective_mass(), sim.settings.eps2)
+    dt_, steps = sim.settings.dt, 25
+    pw.reset_launch_counts()
+    sim.run(steps)
+    diag_k1 = pw.launch_counts()["pairwise_acc_sym"]
+    require(diag_k1 >= steps, f"the diagnostics run launched K1 {diag_k1}x")
+    s1 = sim.state
+    require(int(s1.n_alive()) == int(s0.n_alive()),
+            "a particle left the box during the diagnostics run")
+    d1 = diag.diagnostics(s1, sim.settings)
+    require(all(bool(torch.isfinite(v).all()) for v in d1.values()),
+            "diagnostics not finite")
+    q1 = {k: f(as64(s1)) for k, f in (("P", diag.momentum),
+                                       ("L", diag.angular_momentum),
+                                       ("C", diag.center_of_mass))}
+    t_run = steps * dt_
+    s3 = math.sqrt(3.0)
+    b_p = steps * s3 * u * (2 * sum_mv + (gamma + 2) * dt_ * a_sum)
+    b_l = steps * s3 * u * (4 * sum_mrv + r_max * (gamma + 2) * dt_ * a_sum)
+    b_c = (steps * 2 * s3 * u * sum_mr + b_p * t_run) / mass_tot
+    dp = float((q1["P"] - q0["P"]).norm())
+    dl = float((q1["L"] - q0["L"]).norm())
+    dc = float((q1["C"] - q0["C"] - q0["P"] * t_run / mass_tot).norm())
+    for what, got, lim in (("momentum", dp, b_p), ("angular momentum", dl,
+                                                   b_l),
+                           ("centre of mass", dc, b_c)):
+        require(got <= lim, f"{what} changed by {got:.3e} over the 65536 "
+                f"run (bound {lim:.3e})")
+    parts.append(
+        f"65536 K1 run, 25 steps (K1 launched {diag_k1}x): |dP| {dp:.3e} "
+        f"(bound {b_p:.3e}; sum m|v| {sum_mv:.4e}), |dL| {dl:.3e} (bound "
+        f"{b_l:.3e}; sum m|r||v| {sum_mrv:.4e}), |dC - P0 T/M| {dc:.3e} "
+        f"(bound {b_c:.3e}); f32 diagnostics: |P| "
+        f"{float(d0['momentum'].norm()):.3e} -> "
+        f"{float(d1['momentum'].norm()):.3e}, E {float(d0['energy']):.9e} -> "
+        f"{float(d1['energy']):.9e}")
+
+    # make_recorder on the card: 20 bh steps of the 100k disc, every 10
+    st, params = bh_state(100000)
+    gf.reset_launch_counts()
+    record = diag.make_recorder(get_engine("bh").force, every=10,
+                                with_energy=True)
+    final, traj = record(st, params, 20)
+    rec_counts = gf.launch_counts()
+    require(rec_counts["group_force_masked"] >= 20,
+            f"the recorder's bh steps launched {rec_counts}")
+    cap = st.capacity
+    shapes = {k: tuple(v.shape) for k, v in traj.items()}
+    require(shapes == {"pos": (2, cap, 3), "vel": (2, cap, 3), "time": (2,),
+                       "n_alive": (2,), "kinetic": (2,), "potential": (2,)},
+            f"recorder shapes {shapes}")
+    require(torch.equal(traj["pos"][-1], final.pos)
+            and torch.equal(traj["vel"][-1], final.vel),
+            "the recorder's last snapshot is not the final state")
+    require(all(bool(torch.isfinite(v).all()) for v in traj.values()),
+            "recorder snapshot not finite")
+    parts.append(f"recorder, 100k bh, 20 steps every 10: shapes {shapes}, "
+                 f"launches {rec_counts}, last snapshot == final state, "
+                 f"times {traj['time'].tolist()}")
+
+    # --profile on the 65536 brute-pallas run: K1 in the trace
+    prof_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_prof_",
+                                           dir=_build.BUILD_DIR)
+    cli.main(["-n", "65535", "--engine", "brute-pallas", "--steps", "25",
+              "--json", "--device", "cuda", "--profile", prof_dir.name])
+    traces = [f for f in os.listdir(prof_dir.name) if f.endswith(".json")]
+    require(len(traces) == 1, f"--profile wrote {traces}")
+    path = os.path.join(prof_dir.name, traces[0])
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k1_events = sorted(n for n in names if "acc_sym_tiles_kernel" in n)
+    trace_mb = os.path.getsize(path) / 1e6
+    prof_dir.cleanup()
+    require(k1_events, "the --profile trace holds no K1 kernel event")
+    parts.append(f"--profile: one trace ({trace_mb:.1f} MB, {len(names)} "
+                 f"event names) holding {k1_events[0][:60]}")
+    print("[18 diagnostics, profiler] " + " | ".join(parts), flush=True)
 
     k4_launches = sum(c["quad_force"] for c in bh_launches.values())
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):

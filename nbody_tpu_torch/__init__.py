@@ -2,15 +2,18 @@
 
 Softened Newtonian gravity integrated with a drift-kick-drift leapfrog inside
 an open box, on fixed-capacity tensors with an alive mask.  Ported: scenes,
-state, integrators, stepper, exact energy, the ``brute`` and
-``brute-pallas*`` engines, whose all-pairs sums run in hand-written CUDA
-kernels for Hopper (``csrc/pairwise.cu``; the norm-trick ``brute-pallas-mxu``
-in ``csrc/pairwise_mxu.cu``), and the Barnes-Hut engines ``bh`` /
-``bh-deep`` (Morton octree, vectorized group walk; their group and
-quadrupole sums run in ``csrc/group_force.cu``, each group's own square with
-``near_sym`` in ``csrc/pairwise.cu``).  On the CPU the same
-engines run plain torch.  The JAX package ``nbody_tpu`` stays beside it as
-the reference the port is tested against; this package never imports jax.
+state, integrators, the stepper and its compensated (TwoSum) variant, the
+exact and tree-estimated energy, conserved-quantity diagnostics and the
+trajectory recorder, the float64 C++ oracle's bindings, the profiler
+surface, the ``brute`` and ``brute-pallas*`` engines, whose all-pairs sums
+run in hand-written CUDA kernels for Hopper (``csrc/pairwise.cu``; the
+norm-trick ``brute-pallas-mxu`` in ``csrc/pairwise_mxu.cu``), and the
+Barnes-Hut engines ``bh`` / ``bh-deep`` (Morton octree, vectorized group
+walk; their group and quadrupole sums run in ``csrc/group_force.cu``, each
+group's own square with ``near_sym`` in ``csrc/pairwise.cu``).  On the CPU
+the same engines run plain torch.  The JAX package ``nbody_tpu`` stays
+beside it as the reference the port is tested against; this package never
+imports jax.
 """
 
 from nbody_tpu_torch.core.state import ParticleState, SimParams, Bounds

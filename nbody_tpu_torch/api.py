@@ -12,9 +12,10 @@
 
 ``device="cuda"`` runs on the card or raises; nothing silently runs on the
 CPU.  ``engine_options`` bind build options of the ``bh`` engines (a
-``profile`` and ``BHConfig`` fields).  Not yet ported (they raise):
-``compensated=True``, the ``adaptive`` profile, and with it the steep-core
-route of ``engine='auto'``.
+``profile`` and ``BHConfig`` fields).  ``compensated=True`` carries a
+double-float low word for positions and velocities (``make_step_comp``).
+Not yet ported (they raise): stateful engines, the ``adaptive`` profile,
+and with it the steep-core route of ``engine='auto'``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ import torch
 
 from nbody_tpu_torch.core.energy import resolve_energy_method, total_energy
 from nbody_tpu_torch.core.state import ParticleState, SimParams
-from nbody_tpu_torch.core.stepper import make_run, make_step
+from nbody_tpu_torch.core.stepper import (
+    init_comp,
+    make_run,
+    make_run_comp,
+    make_step,
+    make_step_comp,
+)
 from nbody_tpu_torch.engines import Engine, get_engine
 from nbody_tpu_torch.ops.traversal import (
     ROADMAP_ADAPTIVE,
@@ -97,17 +104,24 @@ class Simulation:
         compensated: bool = False,
         **settings,
     ):
-        if compensated:
-            raise NotImplementedError(
-                "compensated=True (the TwoSum stepper) is not yet ported to "
-                "nbody_tpu_torch (ROADMAP.md, queue 1, item 3)"
-            )
+        """``compensated=True`` carries a double-float low word for pos/vel
+        and routes every integrator accumulation through an error-free
+        TwoSum (``core/stepper.py`` ``make_step_comp``), which closes most
+        of the f32 energy-drift gap to float64."""
         self.device = resolve_device(device)
         if engine == "auto":
             engine = resolve_auto_engine(len(mass), self.device)
             if engine == "bh" and not (engine_options or {}).get("profile"):
                 _check_scene_profile(pos, bounds_center, bounds_width)
         self.engine = get_engine(engine, **(engine_options or {}))
+        if self.engine.stateful:
+            if compensated:
+                raise ValueError(
+                    "compensated=True is not supported with stateful engines "
+                    "(bh-lazy); use engine='bh'")
+            raise NotImplementedError(
+                "stateful engines (the stateful stepper) are not yet ported "
+                "to nbody_tpu_torch (ROADMAP.md, queue 1, item 16)")
         #: the engine's build options, as given
         self.engine_options = dict(engine_options or {})
         # capacities match the JAX package's, which pads the kernel engines
@@ -124,8 +138,15 @@ class Simulation:
             device=self.device,
             **settings,
         )
-        self._step = make_step(self.engine.force, integrator)
-        self._run = make_run(self.engine.force, integrator)
+        self.compensated = bool(compensated)
+        self._lo = None
+        if self.compensated:
+            self._lo = init_comp(self._state)
+            self._step = make_step_comp(self.engine.force, integrator)
+            self._run = make_run_comp(self.engine.force, integrator)
+        else:
+            self._step = make_step(self.engine.force, integrator)
+            self._run = make_run(self.engine.force, integrator)
         self._initial: Optional[ParticleState] = None
         self.init()
 
@@ -137,12 +158,15 @@ class Simulation:
             self._state, time=torch.zeros_like(self._state.time)
         )
         self._initial = self._state
+        self._initial_lo = self._lo
 
     def reset(self):
-        """Restore the initial particles, keep the current settings."""
+        """Restore the initial particles (and low words), keep the current
+        settings."""
         if self._initial is None:
             raise RuntimeError("init() was never called")
         self._state = self._initial
+        self._lo = self._initial_lo
 
     # -- stepping ----------------------------------------------------------
 
@@ -150,11 +174,19 @@ class Simulation:
         self.step_by(None)
 
     def step_by(self, dt: Optional[float] = None):
-        self._state = self._step(self._state, self._params, dt)
+        if self.compensated:
+            self._state, self._lo = self._step(self._state, self._lo,
+                                               self._params, dt)
+        else:
+            self._state = self._step(self._state, self._params, dt)
 
     def run(self, n_steps: int, dt: Optional[float] = None):
         """n steps, enqueued without waiting for the device."""
-        self._state = self._run(self._state, self._params, n_steps, dt)
+        if self.compensated:
+            self._state, self._lo = self._run(self._state, self._lo,
+                                              self._params, n_steps, dt)
+        else:
+            self._state = self._run(self._state, self._params, n_steps, dt)
         return self._state
 
     def update_forces(self):
@@ -213,8 +245,10 @@ class Simulation:
     # -- diagnostics -------------------------------------------------------
 
     def energy(self, method: str = "auto") -> float:
-        """Total energy: 'exact' (O(N^2) pair PE) or 'auto' (exact up to a
-        capacity of 262144; the tree estimator above is not yet ported)."""
+        """Total energy: 'exact' (O(N^2) pair PE), 'bh' (the tree
+        estimator, ~1e-4 relative bias: fine for one-shot magnitudes, can
+        dominate drift measurements at the 1e-5..1e-4 level) or 'auto'
+        (exact up to a capacity of 262144, the tree estimator above)."""
         return float(total_energy(self._state, self._params, method=method))
 
     def energy_method(self, method: str = "auto") -> str:
@@ -224,11 +258,17 @@ class Simulation:
     # -- checkpointing: the JAX package's pickle payload, both ways --------
 
     def _payload(self) -> dict:
-        return {
+        out = {
             "state": self._state.to_numpy(),
             "params": self._params.to_numpy(),
             "engine": self.engine.name,
         }
+        if self.compensated:
+            # the low words ride along so a restored run keeps its
+            # compensation
+            out["lo"] = {"pos_lo": self._lo[0].cpu().numpy(),
+                         "vel_lo": self._lo[1].cpu().numpy()}
+        return out
 
     def save(self, path: str):
         """Write a pickle that this package's and the JAX package's
@@ -237,12 +277,19 @@ class Simulation:
             pickle.dump(self._payload(), f)
 
     def load(self, path: str):
-        """Read a pickle written by ``save`` of either package.  A JAX
-        checkpoint of a compensated run also holds low words; they are
-        dropped, as this package has no compensated stepper yet."""
+        """Read a pickle written by ``save`` of either package.  The low
+        words of a compensated checkpoint are restored in a compensated
+        ``Simulation`` (zeros when the file has none) and ignored in a
+        plain one.  The restored point becomes the ``reset`` target."""
         with open(path, "rb") as f:
             payload = pickle.load(f)
         self._state = ParticleState.from_numpy(payload["state"], self.device)
         self._params = SimParams.from_numpy(payload["params"], self.device)
+        if self.compensated:
+            lo = payload.get("lo")
+            self._lo = (init_comp(self._state) if lo is None else tuple(
+                torch.as_tensor(lo[k], device=self.device)
+                for k in ("pos_lo", "vel_lo")))
         self._initial = self._state
+        self._initial_lo = self._lo
         return self

@@ -8,15 +8,18 @@ Example:
     python -m nbody_tpu_torch -n 1048575 --engine bh --steps 10 --json \
         --device cuda
 
+    python -m nbody_tpu_torch -n 65535 --engine brute-pallas --steps 25 \
+        --compensated --energy --energy-exact --profile prof --device cuda
+
 Flags of paths that are not ported yet (sharding, the adaptive Barnes-Hut
-profile and refinement, walk reuse, the compensated stepper, profiling) are
-accepted by the parser so that a command line of the JAX package reads the
-same, and exit with a message.
+profile and refinement, walk reuse) are accepted by the parser so that a
+command line of the JAX package reads the same, and exit with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -75,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=0,
                    help="not yet ported (sharding over several devices)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="not yet ported (profiler trace)")
+                   help="write a torch.profiler Chrome trace of the timed "
+                   "loop into DIR")
     p.add_argument("--accurate", action="store_true",
                    help="BH accuracy profile: window pad 2048 (bh engines "
                    "only)")
@@ -89,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--walk-every", type=int, default=1, metavar="K",
                    help="not yet ported (bh walk reuse)")
     p.add_argument("--compensated", action="store_true",
-                   help="not yet ported (TwoSum stepper)")
+                   help="double-float (TwoSum) position/velocity updates: "
+                   "closes most of the f32 energy-drift gap to float64")
     return p
 
 
@@ -105,13 +110,6 @@ def _reject_unported(args):
         if on:
             raise SystemExit(f"{flag} is not yet ported to nbody_tpu_torch "
                              f"({item})")
-    if args.compensated:
-        raise SystemExit("--compensated (the TwoSum stepper) is not yet "
-                         "ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
-                         "item 3)")
-    if args.profile:
-        raise SystemExit("--profile is not yet ported to nbody_tpu_torch "
-                         "(ROADMAP.md, queue 1, item 14)")
 
 
 def main(argv=None) -> dict:
@@ -138,6 +136,7 @@ def main(argv=None) -> dict:
         dtype=dtype,
         device=device,
         dt=args.dt, g=args.g, g_soft=args.g_soft, theta2=args.theta2,
+        compensated=args.compensated,
         engine_options=eng_opts or None,
     )
 
@@ -155,14 +154,21 @@ def main(argv=None) -> dict:
     if not args.json:
         print("Running simulation without rendering...")
 
-    start = time.perf_counter()
-    remaining = args.steps
-    while remaining > 0:
-        k = min(chunk, remaining)
-        sim.run(k)
-        remaining -= k
-    sim.block_until_ready()
-    elapsed = time.perf_counter() - start
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from nbody_tpu_torch.utils.profiling import trace
+
+        prof = trace(args.profile)
+
+    with prof:
+        start = time.perf_counter()
+        remaining = args.steps
+        while remaining > 0:
+            k = min(chunk, remaining)
+            sim.run(k)
+            remaining -= k
+        sim.block_until_ready()
+        elapsed = time.perf_counter() - start
 
     steps_per_second = args.steps / elapsed
     result = {
@@ -189,9 +195,12 @@ def main(argv=None) -> dict:
         print(f"Elapsed: {elapsed:.3f}s")
         print(f"Performance: {steps_per_second:.2f} steps/second")
         if args.energy:
+            note = ("" if result["energy_method"] == "exact" else
+                    " [tree estimator: drifts <~1e-4 may be estimator "
+                    "bias — use --energy-exact to measure drift]")
             print(f"Energy: {e0:.9e} -> {result['energy_final']:.9e} "
                   f"(|drift| {result['energy_drift']:.3e}, "
-                  f"{result['energy_method']})")
+                  f"{result['energy_method']}){note}")
     return result
 
 

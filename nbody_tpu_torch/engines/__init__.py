@@ -29,6 +29,9 @@ class Engine:
     #: force(pos[N,D], mass_eff[N], params) -> acc[N,D]
     force: Callable
     description: str = ""
+    #: carries a cache between steps (``bh-lazy`` in the JAX package); the
+    #: stateful stepper is not ported yet (ROADMAP.md, queue 1, item 16)
+    stateful: bool = False
 
 
 def register(engine: Engine) -> Engine:

@@ -33,6 +33,10 @@ the port of the JAX package's XLA contractions (``_pair_block`` /
 ``_pair_block_mxu`` / ``_quad_block``) in plain torch on any device;
 ``"auto"`` takes the kernels for CUDA tensors and the plain torch path for
 CPU tensors.  Nothing is chosen by failure.
+
+The potential estimator (``bh_potential``, ``traverse_tree_phi``) runs the
+same walk and evaluates its slab as monopoles in plain torch on the tree's
+device, as the JAX package's is XLA, not Pallas.
 """
 
 from __future__ import annotations
@@ -399,24 +403,36 @@ def _quad_block(gpos, qrows, g, eps2, p_block=0):
                             (w * ez - ir5 * uz).sum(-1)], dim=-1)
 
 
-def _fb_eval(gpos, gidx, gmass, fb, g, eps2):
-    """Self-excluded monopole acceleration from the overflow-fallback slab
-    fb [G, F, 8] (raw packed node rows: M, mass-weighted sums S, range
-    start/end).  A cell whose sorted range holds the target has the
-    target's own mass and position removed in closed form:
+def _fb_inside(fb, gidx, dtype, tcell=None):
+    """[G, B, F] "fb cell contains target" mask, the narrow form: the
+    sorted-range compare cs <= sorted_idx < ce (cols 4/5 of fb [G, F, 8];
+    exact integers in the dtype by the tree guard).  Empty fb slots hold the
+    empty range [0, 0); their M = 0 row is masked by the caller's m_eff
+    guard either way.  The wide form (the targets' leaf codes ``tcell``)
+    belongs to the N >= 2^24 row format."""
+    if tcell is not None:
+        _unported("the wide fb containment test (tcell)", ROADMAP_PARALLEL)
+    ti = gidx.to(dtype)[:, :, None]
+    return (fb[:, None, :, 4] <= ti) & (ti < fb[:, None, :, 5])
+
+
+def _fb_terms(gpos, gidx, gmass, fb, eps2):
+    """The self-excluded monopole terms of the overflow-fallback slab fb
+    [G, F, 8] (raw packed node rows: M, mass-weighted sums S, range
+    start/end), chunk of groups by chunk so the [C, B, F] temporaries stay
+    bounded.  A cell whose sorted range holds the target has the target's
+    own mass and position removed in closed form:
         M' = M - m_i,   com' = (S - m_i p_i) / M'
-    Empty slots and self-only cells contribute nothing.  Chunked over groups
-    so the [G', B, F] temporaries stay bounded."""
+    Yields (m_eff, dx, dy, dz, ok, inv_r), each [C, B, F]; empty slots and
+    self-only cells have ok False."""
     G, B, _ = gpos.shape
     F = fb.shape[1]
     tiny = torch.finfo(gpos.dtype).tiny
-    out = []
     step = max(1, (1 << 25) // max(B * F, 1))
     for c0 in range(0, G, step):
         p = gpos[c0:c0 + step][:, :, None, :]  # [C, B, 1, 3]
         f = fb[c0:c0 + step][:, None, :, :]  # [C, 1, F, 8]
-        ti = gidx[c0:c0 + step].to(gpos.dtype)[:, :, None]
-        inside = (f[..., 4] <= ti) & (ti < f[..., 5])  # [C, B, F]
+        inside = _fb_inside(fb[c0:c0 + step], gidx[c0:c0 + step], gpos.dtype)
         mi = torch.where(inside, gmass[c0:c0 + step][:, :, None], 0.0)
         m_eff = f[..., 0] - mi
         den = torch.clamp(m_eff, min=tiny)
@@ -426,10 +442,29 @@ def _fb_eval(gpos, gidx, gmass, fb, g, eps2):
         r2 = dx * dx + dy * dy + dz * dz + eps2
         ok = (m_eff > 0.0) & (r2 > 0.0)
         inv_r = torch.rsqrt(torch.where(ok, r2, 1.0))
+        yield m_eff, dx, dy, dz, ok, inv_r
+
+
+def _fb_eval(gpos, gidx, gmass, fb, g, eps2):
+    """Self-excluded monopole acceleration from the overflow-fallback slab
+    (``_fb_terms``) -> [G, B, 3]."""
+    out = []
+    for m_eff, dx, dy, dz, ok, inv_r in _fb_terms(gpos, gidx, gmass, fb,
+                                                  eps2):
         s = torch.where(ok, inv_r * inv_r * inv_r * m_eff, 0.0)
         out.append(torch.stack([(s * dx).sum(-1), (s * dy).sum(-1),
                                 (s * dz).sum(-1)], dim=-1))
     return g * torch.cat(out)
+
+
+def _fb_phi(gpos, gidx, gmass, fb, g, eps2):
+    """Self-excluded potential from the overflow-fallback slab, the φ
+    analog of ``_fb_eval``: φ_i += -G M' / sqrt(|com' - p_i|^2 + eps^2)
+    -> [G, B]."""
+    return -g * torch.cat([
+        torch.where(ok, m_eff * inv_r, 0.0).sum(-1)
+        for m_eff, _dx, _dy, _dz, ok, inv_r in _fb_terms(gpos, gidx, gmass,
+                                                         fb, eps2)])
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +937,15 @@ def _window_rows(pmass8, wstart, wmask, W: int):
     return torch.cat([wrows[..., :3], m[..., None], wrows[..., 4:]], dim=-1)
 
 
+def _near_rows(pmass8, pidx, pvalid):
+    """The [G, P, 8] gathered near-particle rows, masses zeroed past each
+    group's list."""
+    nrows = pmass8[pidx.long()]
+    return torch.cat([nrows[..., :3],
+                      torch.where(pvalid, nrows[..., 3], 0.0)[..., None],
+                      nrows[..., 4:]], dim=-1)
+
+
 def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
                    g, eps2, g_soft, cfg: BHConfig, W: int, mode, mark):
     """Slab assembly + force eval: window rows + near gather (+ the
@@ -910,10 +954,7 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
     ``near_sym``: the window rows are then the rim only), the accepted
     nodes' quadrupoles (K4) and the fallback term.  Returns (acc [G, B, 3]
     in sorted-group order, n_dual, slab_fill)."""
-    nrows = pmass8[pidx.long()]
-    nrows = torch.cat([nrows[..., :3],
-                       torch.where(pvalid, nrows[..., 3], 0.0)[..., None],
-                       nrows[..., 4:]], dim=-1)
+    nrows = _near_rows(pmass8, pidx, pvalid)
     if cfg.near_sym:
         wrows, mcen = _split_window(pmass8, tgt8, walk["wstart"],
                                     walk["wmask"], W)
@@ -941,20 +982,14 @@ def _no_mark(_name):
     pass
 
 
-def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
-                  mark=None):
-    """Group traversal + force over a built tree: collect walk -> slab
-    assembly (window rows + near gather + multipole slab) -> one eval pass
-    -> scatter back to the original particle order.
-
-    Returns (acc [n, 3] in original order, stats).  ``mark``, if given, is
-    called with a phase name at each phase boundary (on-card timing)."""
-    mark = mark or _no_mark
+def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
+    """Pack the sorted particles into slab rows, padded to whole chunks of
+    groups, and run the collect walk for every group.  Returns (eps2,
+    pmass8 [n_tot, 8], tgt8 [G, B, 8], gidx [G, B], W, walk)."""
     B = cfg.group_size
     block = B * cfg.chunk_groups
     pad = (-n) % block
     dtype, dev = tree.pos_s.dtype, tree.pos_s.device
-    mode = _resolve_eval_mode(cfg, tree.pos_s)
     n_tot = n + pad
     eps2 = float(_scalar(g_soft, tree.pos_s) * _scalar(g_soft, tree.pos_s))
     # packed source rows (x, y, z, m, sorted_idx, 0, 0, 0): the slab and
@@ -970,9 +1005,38 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
     G = n_tot // B
     tgt8 = pmass8.reshape(G, B, 8)
     gidx = torch.arange(n_tot, dtype=torch.int32, device=dev).reshape(G, B)
-
     walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
                           cfg, W, tgt8[..., :3], tgt8[..., 3], gidx)
+    return eps2, pmass8, tgt8, gidx, W, walk
+
+
+def _walk_counters(walk) -> dict:
+    """The walk's four counters, summed over groups (0-d tensors)."""
+    return {
+        # true drops (should always be 0; raise accept_cap if not)
+        "accept_dropped": walk["accept_dropped"].sum(),
+        # graceful self-excluded-monopole fallbacks (accuracy, not
+        # correctness)
+        "frontier_fallback": walk["frontier_fallback"].sum(),
+        "near_fallback": walk["near_fallback"].sum(),
+        # fb-slab overflow, degraded further to a plain monopole
+        "fb_spill": walk["fb_spill"].sum(),
+    }
+
+
+def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
+                  mark=None):
+    """Group traversal + force over a built tree: collect walk -> slab
+    assembly (window rows + near gather + multipole slab) -> one eval pass
+    -> scatter back to the original particle order.
+
+    Returns (acc [n, 3] in original order, stats).  ``mark``, if given, is
+    called with a phase name at each phase boundary (on-card timing)."""
+    mark = mark or _no_mark
+    dtype = tree.pos_s.dtype
+    mode = _resolve_eval_mode(cfg, tree.pos_s)
+    eps2, pmass8, tgt8, gidx, W, walk = _walk(tree, bounds, theta2, g_soft,
+                                              cfg, n)
     mark("walk")
     acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
     mark("fb")
@@ -986,25 +1050,75 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
         g_soft, cfg, W, mode, mark)
 
     # un-permute to the original particle order (order is a bijection)
-    acc_s = acc.reshape(n_tot, 3)[:n]
+    acc_s = acc.reshape(-1, 3)[:n]
     out = torch.empty_like(acc_s)
     out[tree.order] = acc_s
     mark("scatter")
     stats = {
-        # true drops (should always be 0; raise accept_cap if not)
-        "accept_dropped": walk["accept_dropped"].sum(),
-        # graceful self-excluded-monopole fallbacks (accuracy, not
-        # correctness)
-        "frontier_fallback": walk["frontier_fallback"].sum(),
-        "near_fallback": walk["near_fallback"].sum(),
-        # fb-slab overflow, degraded further to a plain monopole
-        "fb_spill": walk["fb_spill"].sum(),
+        **_walk_counters(walk),
         "near_totals": ntot,
         "dual_tiles": n_dual,
         "window_cov": walk["wmask"].to(dtype).mean(),
         "slab_fill": slab_fill,
     }
     return out, stats
+
+
+# elements of one [C, T, S] tile of the potential's pair pass
+_PHI_TILE = 1 << 24
+
+
+def _phi_slab_eval(slab, tgt8, g, eps2):
+    """Per-target potential from the assembled slab [G, S, 8] (window and
+    near rows exact with index self-exclusion; multipole rows have idx -1,
+    which never matches).  Plain torch, tiled over groups and targets so a
+    tile holds at most ``_PHI_TILE`` pairs; each target's sum over the S
+    rows stays one reduction.  tgt8 [G, B, 8] -> [G, B]."""
+    G, B, _ = tgt8.shape
+    S = slab.shape[1]
+    cg = max(1, _PHI_TILE // (B * S))
+    bt = B if cg > 1 else max(1, min(B, _PHI_TILE // S))
+    out = []
+    for g0 in range(0, G, cg):
+        sx, sy, sz, sm, si = (slab[g0:g0 + cg, None, :, k] for k in range(5))
+        rows = []
+        for b0 in range(0, B, bt):
+            t = tgt8[g0:g0 + cg, b0:b0 + bt, None, :]  # [C, T, 1, 8]
+            dx = sx - t[..., 0]
+            dy = sy - t[..., 1]
+            dz = sz - t[..., 2]
+            r2 = dx * dx + dy * dy + dz * dz + eps2
+            skip = (si == t[..., 4]) | (r2 <= 0.0) | (sm == 0.0)
+            inv_r = torch.rsqrt(torch.where(skip, 1.0, r2))
+            rows.append(torch.where(skip, 0.0, sm * inv_r).sum(-1))
+        out.append(torch.cat(rows, dim=1))
+    return -g * torch.cat(out)
+
+
+def traverse_tree_phi(tree, bounds, theta2, g, g_soft, cfg: BHConfig,
+                      n: int):
+    """Tree-approximated total potential energy over a built tree: the
+    collect walk and slab assembly of ``traverse_tree`` with a φ
+    accumulator in place of forces, in plain torch on the tree's device.
+
+    U = ½ Σ_i m_i φ_i.  Window and near pairs are exact (index
+    self-exclusion); accepted nodes ride the pair pass as monopoles (no
+    quadrupoles, no block-dual mask, no ``near_sym`` split, whatever the
+    config's force path uses); fallback rows are self-excluded monopoles,
+    fallback spills plain monopoles (counted in the stats).  Returns
+    (U 0-d tensor, stats: the walk's four counters)."""
+    eps2, pmass8, tgt8, gidx, W, walk = _walk(tree, bounds, theta2, g_soft,
+                                              cfg, n)
+    phi_fb = _fb_phi(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
+    pidx, pvalid, _ = _expand_ranges(
+        tree.level_table[cfg.max_level], walk["near_ids"],
+        walk["near_valid"], cfg.near_particle_cap)
+    nrows = _near_rows(pmass8, pidx, pvalid)
+    wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
+    slab = torch.cat([wrows, nrows, walk["mono"]], dim=1)
+    phi = _phi_slab_eval(slab, tgt8, g, eps2) + phi_fb
+    u = 0.5 * (tgt8[..., 3] * phi).sum()
+    return u, _walk_counters(walk)
 
 
 def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
@@ -1026,3 +1140,16 @@ def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
         mark("build")
     return traverse_tree(tree, b0, theta2, g, g_soft, cfg, pos.shape[0],
                          mark=mark)
+
+
+def bh_potential(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None):
+    """Tree-approximated total potential energy: build (no quadrupole
+    moments) + ``traverse_tree_phi``, in the grid frame, on ``pos``'s
+    device in its dtype (no kernel: float64 runs on the card too).
+
+    pos [N, 3], mass [N] (zero for dead) -> (U 0-d tensor, stats)."""
+    cfg = BHConfig() if cfg is None else cfg
+    pos_c = pos - bounds.center
+    b0 = bounds.centered()
+    tree = build_octree(pos_c, mass, b0, cfg.max_level, quad=False)
+    return traverse_tree_phi(tree, b0, theta2, g, g_soft, cfg, pos.shape[0])

@@ -93,7 +93,8 @@ def test_set_settings_live():
     assert sim.elapsed == pytest.approx(t + 2e-2, rel=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(compensated=True),
+@pytest.mark.parametrize("kw", [dict(engine="bh",
+                                     engine_options=dict(walk_every=2)),
                                 dict(engine="bh",
                                      engine_options=dict(profile="adaptive")),
                                 dict(engine="bh-lazy"),
@@ -123,8 +124,7 @@ def test_unknown_device_and_engine():
                                   ["--engine", "bh", "--adaptive"],
                                   ["--engine", "bh-deep", "--refine", "1"],
                                   ["--adaptive"],
-                                  ["--refine", "2"], ["--walk-every", "3"],
-                                  ["--compensated"], ["--profile", "prof"]])
+                                  ["--refine", "2"], ["--walk-every", "3"]])
 def test_cli_unported_flags_exit(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["-n", "10", "--steps", "1", "--cpu", *flag])

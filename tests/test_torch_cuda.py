@@ -468,3 +468,64 @@ def test_mxu_simulation_on_card_matches_cpu(dev):
     assert gpu.n_alive == cpu.n_alive
     assert np.abs(gpu.get_points()[0] - cpu.get_points()[0]).max() < 1e-4
     assert gpu.energy("exact") == pytest.approx(cpu.energy("exact"), rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bh_potential_on_card_matches_cpu(dev, dtype):
+    """The tree potential (plain torch, no kernel) on the card against the
+    CPU: the same walk counters, U within f32 rounding of the rsqrt (float64
+    to 1e-12); the call enqueues with no host sync, and two calls are
+    bitwise equal."""
+    from nbody_tpu_torch.core.energy import potential_energy_bh
+    from nbody_tpu_torch.core.state import SimParams
+
+    pos, vel, mass = self_gravitating_disc(20000, seed=5)
+    out = {}
+    for d in ("cpu", dev):
+        st = ParticleState.create(pos, vel, mass, dtype=dtype, device=d)
+        pr = SimParams.create(g_soft=EPS, theta2=1.0, dtype=dtype, device=d)
+        cfg = tt.BHConfig.auto_for(st.capacity, multipole="mono",
+                                   fb_cap=2048)
+        args = (st.pos, st.effective_mass(), pr.bounds, pr.theta2, pr.g,
+                pr.g_soft, cfg)
+        if d == "cpu":
+            out[d] = tt.bh_potential(*args)
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            u1, s1 = tt.bh_potential(*args)
+            u2, _ = tt.bh_potential(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert u1.is_cuda and torch.equal(u1, u2)
+        assert float(potential_energy_bh(st, pr)) == float(u1)
+        out[d] = (u1, s1)
+    (uc, sc), (ug, sg) = out["cpu"], out[dev]
+    for k in ("accept_dropped", "frontier_fallback", "near_fallback",
+              "fb_spill"):
+        assert int(sg[k]) == int(sc[k]), k
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float(ug) == pytest.approx(float(uc), rel=rel)
+
+
+def test_step_comp_on_card_bitwise_equal_to_cpu(dev):
+    """One compensated step under an elementwise force (no reduction): each
+    operation rounds on its own on both devices, so every word is equal."""
+    from nbody_tpu_torch.core.state import SimParams
+    from nbody_tpu_torch.core.stepper import make_step_comp
+
+    pos, vel, mass = self_gravitating_disc(5000, seed=2)
+    rng = np.random.default_rng(3)
+    lo = [rng.normal(size=(5120, 3)).astype(np.float32) * 1e-9
+          for _ in range(2)]
+    out = []
+    for d in ("cpu", dev):
+        st = ParticleState.create(pos, vel, mass, device=d)
+        pr = SimParams.create(dt=3e-2, bounds_width=3.0, device=d)
+        step = make_step_comp(lambda p, m, prm: -p)
+        s1, l1 = step(st, tuple(torch.from_numpy(a).to(d) for a in lo), pr)
+        out.append([t.cpu() for t in (s1.pos, s1.vel, s1.alive, *l1)])
+    assert int(out[0][2].sum()) < 5001  # the narrow box culls some
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

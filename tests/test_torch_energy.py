@@ -33,15 +33,12 @@ def test_energy_matches_jax(kill, g_soft):
         ke + pe, rel=1e-6)
 
 
-def test_energy_method_bh_is_not_ported():
-    st = ParticleState.create(np.zeros((3, 3)), np.zeros((3, 3)),
-                              np.ones(3), capacity=(1 << 18) + 128)
-    params = SimParams.create()
-    assert energy.resolve_energy_method(st.capacity) == "bh"
+def test_energy_method_resolution():
+    """'auto' takes the exact pair PE up to a capacity of 262144 and the
+    tree estimator above; unknown methods raise."""
+    assert energy.resolve_energy_method((1 << 18) + 128) == "bh"
     assert energy.resolve_energy_method(1 << 18) == "exact"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        energy.total_energy(st, params)
-    with pytest.raises(NotImplementedError):
-        energy.total_energy(st, params, method="bh")
+    assert energy.resolve_energy_method(128, "bh") == "bh"
+    assert energy.resolve_energy_method(1 << 20, "exact") == "exact"
     with pytest.raises(ValueError):
         energy.resolve_energy_method(128, "tree")

@@ -9,6 +9,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nbody_tpu.core.state import ParticleState as JaxState
@@ -48,3 +49,15 @@ def rel_err(got, ref) -> float:
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     scale = np.linalg.norm(ref, axis=1).mean()
     return float(np.linalg.norm(got - ref, axis=1).max() / scale)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for a module of long eager loops of small ops:
+    with the suite's parallel workers each pulling the whole thread pool
+    into every op, such a module runs tens of times slower than alone.
+    Import it into the module to apply it; the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
