@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs eighteen phases, each
+(one nvcc per source, all at once), then runs nineteen phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -86,7 +86,17 @@ printing one line and stopping the script with a non-zero exit on failure:
      bitwise; (e) one step under an elementwise force is bitwise the CPU's;
  18. momentum, angular momentum and centre of mass over the 65536 K1 run
      within a bound from f32 rounding; the trajectory recorder on 20 bh
-     steps of the 100k disc; ``--profile``'s trace holds K1.
+     steps of the 100k disc; ``--profile``'s trace holds K1;
+ 19. the density-adaptive path (``adaptive_phase``): the bench's Plummer
+     spheres at 2^20 (box widths 40 and 10) and 131072 (width 40) through
+     ``Simulation(engine="auto")``, which must resolve the deep, tight-box
+     and mid-N stacks; 4096 sampled rows of each initial state within p99
+     5e-2 of the K2 oracle; 5 steps each with K3 and K4 every step; on
+     each final state no accept or build drop, refined-near rows taken,
+     two force calls bitwise equal, the sampled error printed; K3 and K4
+     against their twins on the real adaptive
+     slabs; ``--adaptive --energy`` through the CLI; one deep force call
+     split by phase, the refined build apart.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -169,6 +179,342 @@ def bound(pairs, ops_per_pair, nbytes, rsqrts=None):
 
 def nnz(x) -> int:
     return int((x != 0).sum())
+
+
+def k3_bound(tgt8, slab, tile, mask):
+    """K3 needs each target against each massive slab row outside the
+    source tiles its mask entry skips."""
+    Gs, B = tgt8.shape[:2]
+    S = slab.shape[1]
+    nz = (slab[..., 3] != 0).reshape(Gs, S // tile, tile).sum(-1)
+    if mask is None:
+        pairs = B * int(nz.sum())
+    else:
+        pairs = (B // mask.shape[1]) * int(
+            ((~mask.bool()).to(nz.dtype) * nz[:, None, :]).sum())
+    return bound(pairs, OPS["pair"],
+                 Gs * B * 24 + Gs * S * 16
+                 + (0 if mask is None else mask.numel()))
+
+
+def k4_bound(tgt8, qslab):
+    Gs, B = tgt8.shape[:2]
+    return bound(B * nnz(qslab[..., 3]), OPS["quad"],
+                 Gs * B * 24 + qslab.shape[1] * Gs * 40)
+
+
+def ms(fn, reps):
+    """Mean time of ``fn`` over ``reps`` back-to-back calls after one warm
+    call (ms, CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def split_call(run):
+    """One force call ``run(mark)`` split at its phase marks with CUDA
+    events (ms); the second of two calls is the one kept."""
+    import torch
+
+    for _ in range(2):
+        events = []
+
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        mark("start")
+        run(mark)
+        torch.cuda.synchronize()
+        split = {name: round(events[i - 1][1].elapsed_time(ev), 3)
+                 for i, (name, ev) in enumerate(events) if i}
+    split["total"] = round(sum(split.values()), 3)
+    return split
+
+
+def record_calls(run, names=("group_force", "quad_force")):
+    """Run ``run()`` with the kernel wrappers ``names`` of ops/group_force
+    spied on: returns {name: [(args, kwargs), ...]}, the slabs the walk
+    gave each kernel."""
+    import torch
+    from nbody_tpu_torch.ops import group_force as gf
+
+    calls = {k: [] for k in names}
+    orig = {k: getattr(gf, k) for k in names}
+
+    def spy(name):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return orig[name](*a, **kw)
+        return call
+
+    try:
+        for k in names:
+            setattr(gf, k, spy(k))
+        run()
+    finally:
+        for k, fn in orig.items():
+            setattr(gf, k, fn)
+    torch.cuda.synchronize()
+    return calls
+
+
+def sampled_error(pos, m_eff, alive, acc, seed=0):
+    """|da| / max(|a|, median |a|) on 4096 sampled alive rows against the
+    K2 oracle (the bench's measure): (median, p99)."""
+    import numpy as np
+    import torch
+    from nbody_tpu_torch.ops import pairwise as pw
+
+    rows = torch.as_tensor(np.sort(np.random.default_rng(seed).choice(
+        np.nonzero(alive.cpu().numpy())[0], 4096, replace=False)),
+        device=pos.device)
+    oracle = pw.pairwise_acc_targets(pos[rows], pos, m_eff, G, EPS)
+    rn = oracle.norm(dim=1)
+    err = ((acc[rows] - oracle).norm(dim=1)
+           / torch.clamp(rn, min=float(rn.median()))).cpu().numpy()
+    return float(np.median(err)), float(np.percentile(err, 99))
+
+
+# phase 19: the bench's adaptive scenes (bench.py:168-224: Plummer spheres
+# of seed 0, |pos| <= 20 kept, dt 3e-2, eps 0.02, theta^2 1), the stack
+# engine='auto' must resolve, and the JAX package's own sampled p99_typ
+# there (VALIDATION.md sections 19-20; a TPU reading, for comparison only)
+ADAPTIVE_RUNS = (
+    ("1M deep w40", 1 << 20, 40.0, "ADAPTIVE_OVERRIDES", 0.0268),
+    ("1M tight w10", 1 << 20, 10.0, "ADAPTIVE_TIGHT_OVERRIDES", 0.0402),
+    ("131k mid-N w40", 131072, 40.0, "ADAPTIVE_MIDN_OVERRIDES", 0.0065),
+)
+STEPS_ADAPTIVE = 5
+
+
+def adaptive_phase():
+    """Phase 19, the density-adaptive path on the card.  (a, b) each of
+    ADAPTIVE_RUNS through ``Simulation(engine="auto")``: the resolved stack,
+    4096 sampled rows of the initial state against the K2 oracle within
+    p99 5e-2 (the state of the JAX package's readings); 5 steps with K3
+    and K4 launched every step; on the final state no accept or build
+    drop, refined-near rows taken, two force calls bitwise equal, the
+    sampled error (printed: the deep stack leaves its envelope at some
+    steps, in both packages) beside the fast profile's, force calls/s,
+    and (e) K3 and K4
+    against their twins on a few groups of the real adaptive slabs (the
+    group with the most refined-near rows among them), with their times
+    and bounds.  (c) ``--adaptive --energy`` on the 2^20 sphere through the
+    CLI.  (d) one deep force call split at the phase marks, the refined
+    build apart.  Returns the kernel launches and readings for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from nbody_tpu_torch import Simulation, cli
+    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import traversal as tt
+    from nbody_tpu_torch.scenes import plummer_sphere
+
+    out = {"launches": {}, "k3_abs": 0.0, "k4_abs": 0.0}
+    parts = []
+    for label, n, width, stack, jax_p99 in ADAPTIVE_RUNS:
+        pos, vel, mass = plummer_sphere(n, seed=0)
+        keep = np.all(np.abs(pos) <= 20.0, axis=1)
+        sim = Simulation(pos[keep], vel[keep], mass[keep], engine="auto",
+                         capacity=n, bounds_width=width, device="cuda",
+                         dt=3e-2, g_soft=EPS, theta2=1.0)
+        want = dict(profile="adaptive", **getattr(tt, stack))
+        require(sim.engine_options == want,
+                f"{label}: engine='auto' resolved {sim.engine_options}")
+        over = {k: v for k, v in want.items() if k != "profile"}
+        cfg = tt.BHConfig.auto_for(sim.state.capacity, **over)
+        # the envelope on the initial state, where the JAX package's
+        # readings were taken (bench.py:196-222)
+        st0 = sim.state
+        m0 = st0.effective_mass()
+        acc0, _ = tt.bh_accel(st0.pos, m0, sim.settings.bounds,
+                              sim.settings.theta2, sim.settings.g,
+                              sim.settings.g_soft, cfg)
+        med0, p99_0 = sampled_error(st0.pos, m0, st0.alive, acc0)
+        require(p99_0 < 5e-2, f"{label}: sampled p99_typ {p99_0:.4f} on "
+                f"the initial state (median {med0:.3e})")
+        del st0, m0, acc0
+        sim.run(1)  # warm: the allocator's first sizes
+        sim.block_until_ready()
+        sim.reset()
+        gf.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim.run(STEPS_ADAPTIVE)
+        sim.block_until_ready()
+        rate = STEPS_ADAPTIVE / (time.perf_counter() - t0)
+        counts = gf.launch_counts()
+        out["launches"][label] = counts
+        k3_runs = counts["group_force"] + counts["group_force_masked"]
+        k4_per = 2 if cfg.block_dual else 1
+        require(k3_runs >= STEPS_ADAPTIVE
+                and counts["quad_force"] >= k4_per * STEPS_ADAPTIVE,
+                f"{label}: launches {counts} in {STEPS_ADAPTIVE} steps")
+
+        st, prm = sim.state, sim.settings
+        require(bool(torch.isfinite(st.pos).all()
+                     & torch.isfinite(st.vel).all()),
+                f"{label}: final state is not finite")
+        m_eff = st.effective_mass()
+
+        def call(c=cfg, **kw):
+            return tt.bh_accel(st.pos, m_eff, prm.bounds, prm.theta2, prm.g,
+                               prm.g_soft, c, **kw)
+
+        res = {}
+        calls = record_calls(lambda: res.update(first=call()))
+        acc, stats = res["first"]
+        require(torch.equal(acc, call()[0]),
+                f"{label}: two force calls differ")
+        require(bool(torch.isfinite(acc).all()), f"{label}: not finite")
+        walk = {k: int(stats[k].sum()) for k in (
+            "accept_dropped", "frontier_fallback", "near_fallback",
+            "fb_spill", "refine_near_totals", "refine_build_dropped")}
+        require(walk["accept_dropped"] == 0
+                and walk["refine_build_dropped"] == 0
+                and walk["refine_near_totals"] > 0,
+                f"{label}: walk counters {walk}")
+        # printed, not held: the deep stack's frontier cap overflows on
+        # the core group at some steps (PERF.md section 6)
+        med, p99 = sampled_error(st.pos, m_eff, st.alive, acc)
+        acc_f, stats_f = call(tt.BHConfig.auto_for(st.capacity))
+        med_f, p99_f = sampled_error(st.pos, m_eff, st.alive, acc_f)
+        calls_ms = ms(call, 3)
+
+        # (e) the kernels on the real adaptive slabs
+        rnt = stats["refine_near_totals"]
+        (a3, k3), = calls["group_force"]
+        G_ = a3[0].shape[0]
+        sel = sorted({0, G_ // 2, G_ - 1, int(rnt.argmax())})
+        e3, abs3 = k3_check(*pick(a3, k3, sel), f"{label} slab")
+        k3_ms = ms(lambda: gf.group_force(*a3, **k3), 5)
+        k3_bnd = k3_bound(a3[0], a3[1], k3["tile"], k3["mask"])
+        kparts = [f"K3 {tuple(a3[0].shape)} x {tuple(a3[1].shape)}"
+                  + ("" if k3["mask"] is None else
+                     f" mask {tuple(k3['mask'].shape)} "
+                     f"({int(k3['mask'].sum())} set)")
+                  + f", groups {sel}: {e3:.2e}, {k3_ms:.3f} ms (bound "
+                  f"{k3_bnd[0]:.3f})"]
+        for i, (a4, k4) in enumerate(calls["quad_force"]):
+            dual = cfg.block_dual and i == 0
+            rows = (list(range(0, a4[0].shape[0],
+                               max(1, a4[0].shape[0] // 8))) if dual
+                    else sel)
+            e4, abs4 = k4_check(*pick(a4, k4, rows), f"{label} K4 {i}")
+            k4_ms = ms(lambda: gf.quad_force(*a4, **k4), 5)
+            kparts.append(f"K4 {'dual rows' if dual else 'accepted'} "
+                          f"{tuple(a4[0].shape)} x {tuple(a4[1].shape)}: "
+                          f"{e4:.2e}, {k4_ms:.3f} ms (bound "
+                          f"{k4_bound(a4[0], a4[1])[0]:.4f})")
+            out["k4_abs"] = max(out["k4_abs"], abs4)
+        out["k3_abs"] = max(out["k3_abs"], abs3)
+        del calls
+        parts.append(
+            f"{label} ({int(keep.sum())} in the box, capacity "
+            f"{st.capacity}, ml{cfg.max_level}+R{cfg.refine_levels} t"
+            f"{cfg.refine_threshold}, group {cfg.group_size}, block_dual "
+            f"{cfg.block_dual}): {STEPS_ADAPTIVE} steps launches {counts}, "
+            f"{rate:.3f} steps/s; initial state p99_typ {p99_0:.4f} median "
+            f"{med0:.3e} (JAX's TPU reading {jax_p99}); final state: {walk},"
+            f" p99_typ {p99:.4f} median {med:.3e} (fast profile p99 "
+            f"{p99_f:.4f} median {med_f:.3e}), {1e3 / calls_ms:.3f} "
+            f"force calls/s ({calls_ms:.1f} ms), two calls bitwise equal; "
+            + "; ".join(kparts))
+        if label.startswith("1M deep"):
+            # (d) one deep force call split at its phase marks
+            out["split"] = split_call(lambda mark: call(mark=mark))
+            # the refined tree potential on the same state beside the
+            # fast-profile estimator --energy uses (the JAX package's too)
+            u_ad, _ = tt.bh_potential(st.pos, m_eff, prm.bounds, prm.theta2,
+                                      prm.g, prm.g_soft, cfg)
+            u_f, _ = tt.bh_potential(st.pos, m_eff, prm.bounds, prm.theta2,
+                                     prm.g, prm.g_soft, tt.BHConfig.auto_for(
+                                         st.capacity, multipole="mono",
+                                         fb_cap=2048))
+            require(math.isfinite(float(u_ad)), "refined potential")
+            out["potential"] = (float(u_ad), float(u_f))
+        del sim, st, acc, acc_f
+
+    # (c) the CLI's --adaptive on the 2^20 sphere
+    gf.reset_launch_counts()
+    r = cli.main(["--scene", "plummer", "-n", str(1 << 20), "--box-width",
+                  "40", "--engine", "bh", "--adaptive", "--steps",
+                  str(STEPS_ADAPTIVE), "--energy", "--json", "--device",
+                  "cuda"])
+    counts = gf.launch_counts()
+    out["launches"]["CLI"] = counts
+    require(counts["group_force"] >= 2 * STEPS_ADAPTIVE
+            and counts["quad_force"] >= 2 * STEPS_ADAPTIVE,
+            f"--adaptive: launches {counts}")
+    require(math.isfinite(r["energy_drift"]),
+            f"--adaptive: drift {r['energy_drift']}")
+    u_ad, u_f = out["potential"]
+    parts.append(
+        f"CLI --adaptive, 2^20 sphere w40, {STEPS_ADAPTIVE} steps: launches "
+        f"{counts} (warm run included), {r['steps_per_second']:.3f} steps/s"
+        f", drift {r['energy_drift']:.3e} ({r['energy_method']}); refined "
+        f"tree potential on the deep state {u_ad:.7e} (fast estimator "
+        f"{u_f:.7e}, {abs(u_ad - u_f) / abs(u_f):.2e} apart); one deep "
+        f"force call (ms): {json.dumps(out['split'])}, "
+        f"{1e3 / out['split']['total']:.3f} force calls/s")
+    print("[19 adaptive] " + " | ".join(parts), flush=True)
+    return out
+
+
+def pick(args, kw, groups):
+    """A kernel call restricted to a few groups (all of them for the
+    block-dual rows, whose 'groups' are target tiles)."""
+    import torch
+
+    sel = torch.as_tensor(groups, device=args[0].device)
+    a = tuple(t[sel].contiguous() if torch.is_tensor(t) else t
+              for t in args)
+    k = {key: (v[sel].contiguous() if torch.is_tensor(v) else v)
+         for key, v in kw.items()}
+    return a, k
+
+
+def k3_check(args, kw, label, bound=1e-5):
+    """K3 on a call's arguments against its plain twin (max row over mean
+    row), finite, two calls bitwise equal.  Returns (error, max |diff|)."""
+    import torch
+    from nbody_tpu_torch.ops import group_force as gf
+
+    got = gf.group_force(*args, **kw)
+    torch.cuda.synchronize()
+    ref = gf.group_force_plain(*args, **kw)
+    require(bool(torch.isfinite(got).all()), f"K3 {label}: not finite")
+    e = rows_err(got, ref)
+    require(e < bound, f"K3 {label} vs plain: {e:.3e}")
+    require(torch.equal(got, gf.group_force(*args, **kw)),
+            f"K3 {label}: two calls differ")
+    return e, float((got - ref).abs().max())
+
+
+def k4_check(args, kw, label):
+    """K4 as k3_check, held to 5e-5."""
+    import torch
+    from nbody_tpu_torch.ops import group_force as gf
+
+    got = gf.quad_force(*args, **kw)
+    torch.cuda.synchronize()
+    ref = gf.quad_force_plain(*args, **kw)
+    require(bool(torch.isfinite(got).all()), f"K4 {label}: not finite")
+    e = rows_err(got, ref)
+    require(e < 5e-5, f"K4 {label} vs plain: {e:.3e}")
+    require(torch.equal(got, gf.quad_force(*args, **kw)),
+            f"K4 {label}: two calls differ")
+    return e, float((got - ref).abs().max())
 
 
 def species_slab(np, G, B, S, seed):
@@ -380,12 +726,12 @@ def main() -> int:
     require(bool(torch.isfinite(st.pos).all() & torch.isfinite(st.vel).all()),
             "final state is not finite")
     alive_idx = np.nonzero(st.alive.cpu().numpy())[0]
-    pick = torch.as_tensor(
+    sample = torch.as_tensor(
         np.random.default_rng(0).choice(alive_idx, 1024, replace=False),
         device=dev)
-    oracle = pw.pairwise_acc_targets(st.pos[pick], st.pos,
+    oracle = pw.pairwise_acc_targets(st.pos[sample], st.pos,
                                      st.effective_mass(), G, EPS)
-    e_or = rel_err(st.acc[pick], oracle)
+    e_or = rel_err(st.acc[sample], oracle)
     require(e_or < 1e-4, f"update_forces vs K2 oracle: {e_or:.3e}")
     # above 262144 brute-pallas is K2 at K = N: 299999 + the star, 5 steps
     ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -409,13 +755,13 @@ def main() -> int:
                  & torch.isfinite(st.acc).all()),
             "300000: final state is not finite")
     alive_idx = np.nonzero(st.alive.cpu().numpy())[0]
-    pick = torch.as_tensor(
+    sample = torch.as_tensor(
         np.random.default_rng(0).choice(alive_idx, 1024, replace=False),
         device=dev)
     exact = pw.pairwise_acc_targets_plain(
-        st.pos[pick].double(), st.pos.double(),
+        st.pos[sample].double(), st.pos.double(),
         st.effective_mass().double(), G, EPS, tile=256)
-    e_huge = rel_err(st.acc[pick].double(), exact)
+    e_huge = rel_err(st.acc[sample].double(), exact)
     require(e_huge < 1e-4, f"300000: final forces vs the float64 plain sum "
             f"(1024 alive rows): {e_huge:.3e}")
     huge_in = (st.pos, st.effective_mass())
@@ -429,18 +775,6 @@ def main() -> int:
           f"plain (1024 alive rows) {e_huge:.3e}", flush=True)
 
     # -- 6. times ----------------------------------------------------------
-    def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
     def device_ms(fn, reps):
         """Device time of one call (ms): torch.profiler's sum over the
         kernels ``reps`` calls launch, over ``reps``."""
@@ -564,36 +898,11 @@ def main() -> int:
         BHConfig fields ``over``), recording the kernel wrappers' arguments:
         the slabs the walk assembles."""
         st, params = bh_state(n)
-        calls = {"group_force": [], "quad_force": [], "group_self_force": []}
-        orig = {k: getattr(gf, k) for k in calls}
-
-        def spy(name):
-            def call(*a, **kw):
-                calls[name].append((a, kw))
-                return orig[name](*a, **kw)
-            return call
-
-        try:
-            for k in calls:
-                setattr(gf, k, spy(k))
-            bh_accel(st.pos, st.effective_mass(), params.bounds,
-                     params.theta2, params.g, params.g_soft,
-                     BHConfig.auto_for(st.capacity, **over))
-        finally:
-            for k, fn in orig.items():
-                setattr(gf, k, fn)
-        torch.cuda.synchronize()
-        return calls
-
-    def pick(args, kw, groups):
-        """The call restricted to a few groups (all of them for the
-        block-dual rows, whose 'groups' are target tiles)."""
-        sel = torch.as_tensor(groups, device=dev)
-        a = tuple(t[sel].contiguous() if torch.is_tensor(t) else t
-                  for t in args)
-        k = {key: (v[sel].contiguous() if torch.is_tensor(v) else v)
-             for key, v in kw.items()}
-        return a, k
+        return record_calls(
+            lambda: bh_accel(st.pos, st.effective_mass(), params.bounds,
+                             params.theta2, params.g, params.g_soft,
+                             BHConfig.auto_for(st.capacity, **over)),
+            names=("group_force", "quad_force", "group_self_force"))
 
     calls_1m = walk_calls(1048575)
     calls_100k = walk_calls(100000)
@@ -603,17 +912,6 @@ def main() -> int:
     require(len(calls_100k["group_force"]) == 1
             and calls_100k["group_force"][0][1]["mask"] is not None,
             "the 100k walk did not make one masked K3 call")
-
-    def k3_check(args, kw, label, bound=1e-5):
-        got = gf.group_force(*args, **kw)
-        torch.cuda.synchronize()
-        ref = gf.group_force_plain(*args, **kw)
-        require(bool(torch.isfinite(got).all()), f"K3 {label}: not finite")
-        e = rows_err(got, ref)
-        require(e < bound, f"K3 {label} vs plain: {e:.3e}")
-        require(torch.equal(got, gf.group_force(*args, **kw)),
-                f"K3 {label}: two calls differ")
-        return e, float((got - ref).abs().max())
 
     parts = []
     t8, sl = species_slab(np, 3, 128, 512, 11)
@@ -671,17 +969,6 @@ def main() -> int:
           "bitwise equal", flush=True)
 
     # -- 8. K4 ------------------------------------------------------------
-    def k4_check(args, kw, label):
-        got = gf.quad_force(*args, **kw)
-        torch.cuda.synchronize()
-        ref = gf.quad_force_plain(*args, **kw)
-        require(bool(torch.isfinite(got).all()), f"K4 {label}: not finite")
-        e = rows_err(got, ref)
-        require(e < 5e-5, f"K4 {label} vs plain: {e:.3e}")
-        require(torch.equal(got, gf.quad_force(*args, **kw)),
-                f"K4 {label}: two calls differ")
-        return e, float((got - ref).abs().max())
-
     parts = []
     require(len(calls_1m["quad_force"]) == 1
             and len(calls_100k["quad_force"]) == 2,
@@ -758,16 +1045,9 @@ def main() -> int:
                                            "frontier_fallback",
                                            "near_fallback", "fb_spill")}
         require(four["accept_dropped"] == 0, f"{label}: walk stats {four}")
-        alive_idx = np.nonzero(st.alive.cpu().numpy())[0]
-        rows = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
-            alive_idx, 4096, replace=False)), device=dev)
         pw.reset_launch_counts()
-        oracle = pw.pairwise_acc_targets(st.pos[rows], st.pos, m_eff, G, EPS)
+        med, p99 = sampled_error(st.pos, m_eff, st.alive, acc)
         k2_checks = pw.launch_counts()["pairwise_acc_targets"]
-        rn = oracle.norm(dim=1)
-        err = ((acc[rows] - oracle).norm(dim=1)
-               / torch.clamp(rn, min=float(rn.median()))).cpu().numpy()
-        med, p99 = float(np.median(err)), float(np.percentile(err, 99))
         require(med < median_bound and p99 < 5e-2,
                 f"{label}: sampled force error median {med:.3e}, p99 "
                 f"{p99:.3e}")
@@ -814,26 +1094,6 @@ def main() -> int:
     print("[9 bh main path] " + " | ".join(parts), flush=True)
 
     # -- 10. times ----------------------------------------------------------
-    def k3_bound(tgt8, slab, tile, mask):
-        """K3 needs each target against each massive slab row outside the
-        source tiles its mask entry skips."""
-        Gs, B = tgt8.shape[:2]
-        S = slab.shape[1]
-        nz = (slab[..., 3] != 0).reshape(Gs, S // tile, tile).sum(-1)
-        if mask is None:
-            pairs = B * int(nz.sum())
-        else:
-            pairs = (B // mask.shape[1]) * int(
-                ((~mask.bool()).to(nz.dtype) * nz[:, None, :]).sum())
-        return bound(pairs, OPS["pair"],
-                     Gs * B * 24 + Gs * S * 16
-                     + (0 if mask is None else mask.numel()))
-
-    def k4_bound(tgt8, qslab):
-        Gs, B = tgt8.shape[:2]
-        return bound(B * nnz(qslab[..., 3]), OPS["quad"],
-                     Gs * B * 24 + qslab.shape[1] * Gs * 40)
-
     def k4_rows(qslab):
         """Source rows K4 evaluates for each target (every 128-row stage
         up to its last massive row, rounded up to the kernel's unroll
@@ -872,27 +1132,13 @@ def main() -> int:
     k4a_ev = k4_rows(a[1])
 
     def force_split(n, **over):
-        """One bh force call at n, split at the phase marks with CUDA
-        events (ms); the second of two calls is the one kept."""
+        """One bh force call at n, split at the phase marks (ms)."""
         st, params = bh_state(n)
         cfg = BHConfig.auto_for(st.capacity, **over)
         m_eff = st.effective_mass()
-        for _ in range(2):
-            events = []
-
-            def mark(name, events=events):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events.append((name, ev))
-
-            mark("start")
-            bh_accel(st.pos, m_eff, params.bounds, params.theta2, params.g,
-                     params.g_soft, cfg, mark=mark)
-            torch.cuda.synchronize()
-            split = {name: round(events[i - 1][1].elapsed_time(ev), 3)
-                     for i, (name, ev) in enumerate(events) if i}
-        split["total"] = round(sum(split.values()), 3)
-        return split
+        return split_call(lambda mark: bh_accel(
+            st.pos, m_eff, params.bounds, params.theta2, params.g,
+            params.g_soft, cfg, mark=mark))
 
     split = force_split(1048575)
     smi = nvidia_smi()
@@ -1085,14 +1331,7 @@ def main() -> int:
         require(rel_med < 1e-5 and rel_max < 5e-3,
                 f"{label} near_sym vs bh: median rel {rel_med:.3e}, max "
                 f"{rel_max:.3e}")
-        alive_idx = np.nonzero(alive.cpu().numpy())[0]
-        rows = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
-            alive_idx, 4096, replace=False)), device=dev)
-        oracle = pw.pairwise_acc_targets(st.pos[rows], st.pos, m_eff, G, EPS)
-        on = oracle.norm(dim=1)
-        err = ((acc[rows] - oracle).norm(dim=1)
-               / torch.clamp(on, min=float(on.median()))).cpu().numpy()
-        med, p99 = float(np.median(err)), float(np.percentile(err, 99))
+        med, p99 = sampled_error(st.pos, m_eff, alive, acc)
         require(med < median_bound and p99 < 5e-2,
                 f"{label} near_sym: sampled force error median {med:.3e}, "
                 f"p99 {p99:.3e}")
@@ -1567,7 +1806,13 @@ def main() -> int:
                  f"event names) holding {k1_events[0][:60]}")
     print("[18 diagnostics, profiler] " + " | ".join(parts), flush=True)
 
-    k4_launches = sum(c["quad_force"] for c in bh_launches.values())
+    # -- 19. the adaptive path --------------------------------------------
+    adaptive = adaptive_phase()
+    smi = nvidia_smi()
+
+    # the main paths' launches: phases 9 and 19 (each run read alone)
+    bh_runs = [*bh_launches.values(), *adaptive["launches"].values()]
+    k4_launches = sum(c["quad_force"] for c in bh_runs)
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
         # no single PyTorch call computes a softened-gravity sum
         return {"name": name, "route": "cuda", "source": source,
@@ -1592,16 +1837,15 @@ def main() -> int:
               k2_o20_ms, k2_o20_plain, k2_o20_bound),
         entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
-              bh_launches["1M"]["group_force"]
-              + bh_launches["100k"]["group_force"], k3_abs, k3_ms, k3_plain,
-              k3_bnd),
+              sum(c["group_force"] for c in bh_runs),
+              max(k3_abs, adaptive["k3_abs"]), k3_ms, k3_plain, k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
-              bh_launches["100k"]["group_force_masked"]
-              + bh_launches["1M"]["group_force_masked"], k3m_abs, k3m_ms,
-              k3m_plain, k3m_bnd),
+              sum(c["group_force_masked"] for c in bh_runs),
+              max(k3m_abs, adaptive["k3_abs"]), k3m_ms, k3m_plain, k3m_bnd),
         entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
-              "nbody_tpu/ops/group_force.py:362", k4_launches, k4_abs, k4_ms,
+              "nbody_tpu/ops/group_force.py:362", k4_launches,
+              max(k4_abs, adaptive["k4_abs"]), k4_ms,
               k4_plain, k4_bnd),
         entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
               "nbody_tpu/ops/group_force.py:250",

@@ -12,10 +12,13 @@
 
 ``device="cuda"`` runs on the card or raises; nothing silently runs on the
 CPU.  ``engine_options`` bind build options of the ``bh`` engines (a
-``profile`` and ``BHConfig`` fields).  ``compensated=True`` carries a
+``profile`` and ``BHConfig`` fields).  ``engine='auto'`` above N = 60000
+detects a steep-core scene from its leaf occupancy and routes it to
+``profile='adaptive'``; that profile without ``max_level`` /
+``refine_levels`` resolves the deep, tight-box or mid-N stack from the
+scene, as the JAX package does.  ``compensated=True`` carries a
 double-float low word for positions and velocities (``make_step_comp``).
-Not yet ported (they raise): stateful engines, the ``adaptive`` profile,
-and with it the steep-core route of ``engine='auto'``.
+Not yet ported (they raise): stateful engines.
 """
 
 from __future__ import annotations
@@ -37,9 +40,9 @@ from nbody_tpu_torch.core.stepper import (
 )
 from nbody_tpu_torch.engines import Engine, get_engine
 from nbody_tpu_torch.ops.traversal import (
-    ROADMAP_ADAPTIVE,
     STEEP_CONTRAST,
     detect_scene_profile,
+    resolve_adaptive_overrides,
     scene_occupancy,
 )
 
@@ -69,21 +72,38 @@ def resolve_auto_engine(n: int, device) -> str:
     return "brute" if torch.device(device).type == "cpu" else "brute-pallas"
 
 
-def _check_scene_profile(pos, bounds_center, bounds_width):
-    """``engine='auto'`` picking ``bh`` detects steep-core scenes as the JAX
-    package does; it routes them to the adaptive profile, which is not
-    ported, so such a scene raises instead of running the disc-tuned
-    ``fast`` profile outside its accuracy envelope."""
-    occ = scene_occupancy(pos, bounds_center, bounds_width)
-    if detect_scene_profile(pos, bounds_center, bounds_width,
-                            occupancy=occ) == "adaptive":
-        raise NotImplementedError(
-            f"engine='auto': steep-core scene detected (occupancy contrast "
-            f"{occ['contrast']:.0f} > {STEEP_CONTRAST:.0f}), which the JAX "
-            "package routes to profile='adaptive'; that profile is not yet "
-            f"ported to nbody_tpu_torch ({ROADMAP_ADAPTIVE}).  Pass "
-            "engine='bh' to run the fast profile anyway"
-        )
+def _route_engine_options(engine, auto: bool, engine_options, pos,
+                          bounds_center, bounds_width) -> dict:
+    """The engine options after the JAX package's scene routing
+    (``nbody_tpu/api.py:85-129``, with the same printed lines).  ``engine``
+    is the resolved engine (a name or an ``Engine``), ``auto`` whether
+    ``engine='auto'`` chose it.  An auto-chosen ``bh`` without a profile takes
+    ``profile='adaptive'`` and the scene's stack on a steep-core scene;
+    ``profile='adaptive'`` on ``bh``/``bh-deep`` without ``max_level`` /
+    ``refine_levels`` takes the scene's stack."""
+    options = dict(engine_options or {})
+    if auto and engine == "bh" and not options.get("profile"):
+        occ = scene_occupancy(pos, bounds_center, bounds_width)
+        if detect_scene_profile(pos, bounds_center, bounds_width,
+                                occupancy=occ) == "adaptive":
+            ov = resolve_adaptive_overrides(pos, bounds_center, bounds_width,
+                                            occupancy=occ)
+            options.update(profile="adaptive", **ov)
+            print("[nbody-tpu] engine='auto': steep-core scene detected "
+                  f"(occupancy contrast {occ['contrast']:.0f} > "
+                  f"{STEEP_CONTRAST:.0f}) -> profile='adaptive' (max_level="
+                  f"{ov['max_level']}, refine_levels={ov['refine_levels']}); "
+                  "pass engine='bh' or profile='fast' to override")
+    if (engine in ("bh", "bh-deep") and options.get("profile") == "adaptive"
+            and not any(k in options for k in ("max_level",
+                                               "refine_levels"))):
+        ov = resolve_adaptive_overrides(pos, bounds_center, bounds_width)
+        options.update(ov)
+        print("[nbody-tpu] profile='adaptive' resolved to the "
+              + ("deep" if ov["max_level"] == 7 else "tight-box")
+              + f" stack (max_level={ov['max_level']}, refine_levels="
+              f"{ov['refine_levels']}) from the scene's leaf occupancy")
+    return options
 
 
 class Simulation:
@@ -109,10 +129,11 @@ class Simulation:
         TwoSum (``core/stepper.py`` ``make_step_comp``), which closes most
         of the f32 energy-drift gap to float64."""
         self.device = resolve_device(device)
-        if engine == "auto":
+        auto = engine == "auto"
+        if auto:
             engine = resolve_auto_engine(len(mass), self.device)
-            if engine == "bh" and not (engine_options or {}).get("profile"):
-                _check_scene_profile(pos, bounds_center, bounds_width)
+        engine_options = _route_engine_options(
+            engine, auto, engine_options, pos, bounds_center, bounds_width)
         self.engine = get_engine(engine, **(engine_options or {}))
         if self.engine.stateful:
             if compensated:
@@ -122,7 +143,7 @@ class Simulation:
             raise NotImplementedError(
                 "stateful engines (the stateful stepper) are not yet ported "
                 "to nbody_tpu_torch (ROADMAP.md, queue 1, item 16)")
-        #: the engine's build options, as given
+        #: the engine's build options, after the scene routing
         self.engine_options = dict(engine_options or {})
         # capacities match the JAX package's, which pads the kernel engines
         # to a multiple of 2048

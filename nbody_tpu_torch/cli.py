@@ -11,9 +11,12 @@ Example:
     python -m nbody_tpu_torch -n 65535 --engine brute-pallas --steps 25 \
         --compensated --energy --energy-exact --profile prof --device cuda
 
-Flags of paths that are not ported yet (sharding, the adaptive Barnes-Hut
-profile and refinement, walk reuse) are accepted by the parser so that a
-command line of the JAX package reads the same, and exit with a message.
+    python -m nbody_tpu_torch --scene plummer -n 1048576 --box-width 40 \
+        --engine bh --adaptive --steps 5 --energy --json --device cuda
+
+Flags of paths that are not ported yet (sharding, walk reuse) are accepted
+by the parser so that a command line of the JAX package reads the same, and
+exit with a message.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from nbody_tpu_torch.api import Simulation
 from nbody_tpu_torch.engines import ENGINES
 from nbody_tpu_torch.ops.traversal import (
     DENSE_OVERRIDES,
-    ROADMAP_ADAPTIVE,
     ROADMAP_OPT_IN,
+    resolve_adaptive_overrides,
 )
 from nbody_tpu_torch.scenes import SCENES
 
@@ -87,9 +90,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="BH steep-core profile: depth-8 leaf grid and doubled "
                    "walk budgets (bh engines only)")
     p.add_argument("--adaptive", action="store_true",
-                   help="not yet ported (bh profile)")
+                   help="BH density-adaptive profile: refined levels below "
+                   "the leaf grid, the deep, tight-box or mid-N stack "
+                   "resolved from the scene's leaf occupancy (bh/bh-deep "
+                   "only)")
     p.add_argument("--refine", type=int, default=0, metavar="R",
-                   help="not yet ported (bh refined levels)")
+                   help="BH density-adaptive depth: up to R refined levels "
+                   "below the leaf grid for dense cells "
+                   "(BHConfig.refine_levels; bh/bh-deep only)")
     p.add_argument("--walk-every", type=int, default=1, metavar="K",
                    help="not yet ported (bh walk reuse)")
     p.add_argument("--compensated", action="store_true",
@@ -98,23 +106,43 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _reject_unported(args):
-    if args.devices > 1:
-        raise SystemExit("--devices (sharding over several devices) is not "
-                         "yet ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
-                         "item 17)")
-    for flag, on, item in (("--adaptive", args.adaptive, ROADMAP_ADAPTIVE),
-                           ("--refine", args.refine, ROADMAP_ADAPTIVE),
-                           ("--walk-every", args.walk_every > 1,
-                            ROADMAP_OPT_IN)):
-        if on:
-            raise SystemExit(f"{flag} is not yet ported to nbody_tpu_torch "
-                             f"({item})")
+def _adaptive_options(args, pos, bounds_center) -> dict:
+    """The engine fields of --adaptive and --refine, with the JAX
+    package's checks and messages (``nbody_tpu/cli.py:145-175``):
+    --adaptive takes the stack resolved from this scene's leaf occupancy,
+    and a --refine R after it overrides the refined depth."""
+    opts = {}
+    for flag, on in (("--adaptive", args.adaptive),
+                     ("--refine", args.refine)):
+        if not on:
+            continue
+        if not args.engine.startswith("bh") or args.engine == "bh-lazy":
+            raise SystemExit(f"{flag} applies to bh/bh-deep only")
+        if args.walk_every > 1:
+            raise SystemExit(f"{flag} and --walk-every are exclusive "
+                             "(refined rows have no cached-topology route)")
+    if args.adaptive:
+        if args.dense:
+            raise SystemExit("--adaptive and --dense are exclusive "
+                             "steep-core profiles (adaptive supersedes "
+                             "dense where a single chip suffices)")
+        ov = resolve_adaptive_overrides(pos, bounds_center, args.box_width)
+        opts.update(ov)
+        print("[nbody-tpu] --adaptive resolved to the "
+              + ("deep" if ov["max_level"] == 7 else "tight-box")
+              + f" stack (max_level={ov['max_level']}, "
+              f"refine_levels={ov['refine_levels']})")
+    if args.refine:
+        opts.update(refine_levels=args.refine)
+    return opts
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    _reject_unported(args)
+    if args.devices > 1:
+        raise SystemExit("--devices (sharding over several devices) is not "
+                         "yet ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
+                         "item 17)")
     device = "cpu" if args.cpu else args.device
     dtype = torch.float64 if args.f64 else torch.float32
 
@@ -127,11 +155,18 @@ def main(argv=None) -> dict:
             eng_opts.update(opts)
 
     pos, vel, mass = SCENES[args.scene](args.num_points, seed=args.seed)
+    # one box for the adaptive resolver and the Simulation: the CLI's
+    # scenes are centred at the origin
+    bounds_center = (0.0, 0.0, 0.0)
+    eng_opts.update(_adaptive_options(args, pos, bounds_center))
+    if args.walk_every > 1:
+        raise SystemExit("--walk-every is not yet ported to nbody_tpu_torch "
+                         f"({ROADMAP_OPT_IN})")
     sim = Simulation(
         pos, vel, mass,
         engine=args.engine,
         integrator=args.integrator,
-        bounds_center=(0.0, 0.0, 0.0),
+        bounds_center=bounds_center,
         bounds_width=args.box_width,
         dtype=dtype,
         device=device,

@@ -9,9 +9,11 @@ Engine names:
   * ``bh-deep`` -- leaf grid of depth 8
 
 Options (``engine_options``): any ``BHConfig`` field, plus ``profile``
-('fast', 'accurate' or 'dense').  ``near_sym=True`` evaluates each group's
-own square once per unordered pair (the same force set, another summation
-order).  Fields of paths not ported yet raise, naming their ROADMAP item.  Without group_size / subgroups /
+('fast', 'accurate', 'dense' or 'adaptive': the deep refined stack,
+``ADAPTIVE_OVERRIDES``, whose fields the caller's override).
+``near_sym=True`` evaluates each group's own square once per unordered pair
+(the same force set, another summation order).  Fields of paths not ported
+yet raise, naming their ROADMAP item.  Without group_size / subgroups /
 chunk_groups the config follows the state's capacity
 (``BHConfig.auto_for``).  The opening angle theta^2 stays a runtime
 setting (``SimParams.theta2``).
@@ -21,8 +23,8 @@ from __future__ import annotations
 
 from nbody_tpu_torch.engines import Engine
 from nbody_tpu_torch.ops.traversal import (
+    ADAPTIVE_OVERRIDES,
     DENSE_OVERRIDES,
-    ROADMAP_ADAPTIVE,
     ROADMAP_BH_OPTIONS,
     ROADMAP_OPT_IN,
     BHConfig,
@@ -32,17 +34,14 @@ from nbody_tpu_torch.ops.traversal import (
 
 def make_bh_engine(name: str = "bh", **options) -> Engine:
     profile = options.pop("profile", "fast")
-    if profile == "adaptive":
-        raise NotImplementedError(
-            "profile='adaptive' is not yet ported to nbody_tpu_torch "
-            f"({ROADMAP_ADAPTIVE})")
-    if profile not in ("fast", "accurate", "dense"):
+    if profile not in ("fast", "accurate", "dense", "adaptive"):
         raise ValueError(f"profile must be 'fast', 'accurate', 'dense' or "
                          f"'adaptive', got {profile!r}")
     if profile == "accurate":
         options.setdefault("window_pad", 2048)
-    elif profile == "dense":
-        for k, v in DENSE_OVERRIDES.items():
+    elif profile in ("dense", "adaptive"):
+        stack = DENSE_OVERRIDES if profile == "dense" else ADAPTIVE_OVERRIDES
+        for k, v in stack.items():
             options.setdefault(k, v)
     # engine options of the JAX package that are not BHConfig fields
     walk_every = int(options.pop("walk_every", 1))

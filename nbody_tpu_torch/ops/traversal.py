@@ -1,5 +1,6 @@
 """Vectorized Barnes-Hut traversal (the counterpart of
-``nbody_tpu/ops/traversal.py``, single device, unrefined path).
+``nbody_tpu/ops/traversal.py``, single device), with the density-adaptive
+refined levels (``BHConfig.refine_levels``) and the adaptive presets.
 
 Particles are Morton-sorted (``ops/tree.py``), so consecutive blocks of
 ``group_size`` particles are spatially compact and a whole group shares one
@@ -14,6 +15,10 @@ breadth-first theta walk over the dense level pyramid:
   * the walk only collects: accepted nodes compact into a multipole slab,
     unexpandable leaf cells into a near-particle list, budget overflow into
     a self-excluded fallback slab;
+  * with ``refine_levels > 0``, flagged leaf cells descend into the refined
+    tables below the leaf grid (``ops/tree.py`` ``_build_refined``) under
+    the same rules; their unexpandable cells become explicit sorted ranges
+    that join the near list;
   * one pass then evaluates every group against its assembled slab: the
     hand-written CUDA kernels K3 (pair rows, with the block-dual mask) and
     K4 (quadrupole rows) on the card, ``ops/group_force.py``; with
@@ -55,7 +60,6 @@ from nbody_tpu_torch.ops.tree import (
 )
 
 # ROADMAP.md items of what this slice leaves out (queue 1)
-ROADMAP_ADAPTIVE = "ROADMAP.md, queue 1, item 15"
 ROADMAP_OPT_IN = "ROADMAP.md, queue 1, item 16"
 ROADMAP_PARALLEL = "ROADMAP.md, queue 1, item 17"
 ROADMAP_BH_OPTIONS = "ROADMAP.md, queue 1, item 18"
@@ -66,8 +70,37 @@ DENSE_OVERRIDES = dict(max_level=8, near_particle_cap=2048,
                        frontier_cap=4096, accept_cap=4096,
                        near_cell_cap=4096, fb_cap=512)
 
+# The adaptive stacks, copied verbatim from the JAX package
+# (traversal.py:98-159, where the comments record how each was tuned on a
+# TPU v5e): the deep stack (ml7 + R3, threshold 128) where refinement fires
+# on most of the scene, the tight-box stack (ml6 + R4, threshold 512)
+# otherwise, and the mid-N stack below ADAPTIVE_CUT_MIN_N for both.
+ADAPTIVE_OVERRIDES = dict(
+    max_level=7, refine_levels=3, refine_threshold=128,
+    near_particle_cap=2048, frontier_cap=2048, accept_cap=4096,
+    near_cell_cap=4096, fb_cap=512, refine_frontier=1024,
+    refine_near_cell_cap=2048, refine_near_particle_cap=4096)
+ADAPTIVE_TIGHT_OVERRIDES = dict(
+    max_level=6, refine_levels=4, refine_threshold=512,
+    near_particle_cap=2048, frontier_cap=4096, accept_cap=8192,
+    near_cell_cap=4096, fb_cap=512, refine_frontier=1024,
+    refine_near_cell_cap=2048, refine_near_particle_cap=8192)
+#: the 1M budget cuts do not transfer down-N; at or below this N the mid-N
+#: stack applies
+ADAPTIVE_CUT_MIN_N = 262145
+_ADAPTIVE_BIG_BUDGETS = dict(frontier_cap=8192, accept_cap=8192,
+                             fb_cap=2048, refine_near_particle_cap=16384)
+ADAPTIVE_MIDN_OVERRIDES = dict(
+    max_level=6, refine_levels=4, refine_threshold=128,
+    near_particle_cap=2048, frontier_cap=16384, accept_cap=16384,
+    near_cell_cap=4096, fb_cap=2048, refine_frontier=2048,
+    refine_near_cell_cap=8192, refine_near_particle_cap=32768)
+
 #: contrast above this = steep-core scene (auto-detection threshold)
 STEEP_CONTRAST = 40.0
+#: the deep stack where frac_over128_l7 reaches this, the tight-box stack
+#: below it (the JAX package's DEEP_FRAC)
+DEEP_FRAC = 0.5
 
 
 def scene_occupancy(pos, bounds_center, bounds_width, sample_cap=1 << 21):
@@ -110,6 +143,18 @@ def scene_occupancy(pos, bounds_center, bounds_width, sample_cap=1 << 21):
             out[key] = float(counts[counts * stride > 128].sum()) \
                 / q.shape[0]
     return out
+
+
+def resolve_adaptive_overrides(pos, bounds_center, bounds_width,
+                               occupancy=None):
+    """The adaptive stack for this scene: the mid-N stack below
+    ADAPTIVE_CUT_MIN_N in-bounds particles; above it the deep stack where
+    frac_over128_l7 >= DEEP_FRAC, the tight-box stack otherwise."""
+    occ = occupancy or scene_occupancy(pos, bounds_center, bounds_width)
+    if occ["n_in"] < ADAPTIVE_CUT_MIN_N:
+        return dict(ADAPTIVE_MIDN_OVERRIDES)
+    deep = occ["frac_over128_l7"] >= DEEP_FRAC
+    return dict(ADAPTIVE_OVERRIDES if deep else ADAPTIVE_TIGHT_OVERRIDES)
 
 
 def detect_scene_profile(pos, bounds_center, bounds_width, occupancy=None):
@@ -171,8 +216,26 @@ class BHConfig:
 
     def __post_init__(self):
         if self.refine_levels:
-            _unported("refine_levels > 0 (density-adaptive refinement)",
-                      ROADMAP_ADAPTIVE)
+            # the JAX package's checks and texts (traversal.py:496-522)
+            if self.max_level + self.refine_levels > 10:
+                raise ValueError(
+                    f"max_level + refine_levels = "
+                    f"{self.max_level + self.refine_levels} exceeds the "
+                    f"{self.dim}D Morton depth limit (10)")
+            if self.wide:
+                raise ValueError(
+                    "refine_levels does not support the wide row format "
+                    "(N >= 2^24): refined tables are narrow-only and the "
+                    "refined fallback rows rely on narrow range "
+                    "containment for self-exclusion")
+            if self.fb_quad:
+                raise ValueError(
+                    "refine_levels does not support fb_quad (refined "
+                    "fallback rows have no quadrupole table entry)")
+            if self.refine_frontier <= 0 or self.refine_frontier % BRANCH:
+                raise ValueError(
+                    f"refine_frontier must be a positive multiple of "
+                    f"{BRANCH}, got {self.refine_frontier}")
         for name, on in (("sliding_window", self.sliding_window),
                          ("delta_onepass", self.delta_onepass)):
             if on:
@@ -218,20 +281,29 @@ class BHConfig:
     def window(self) -> int:
         return self.group_size + 2 * self.window_pad
 
+    @property
+    def refine_threshold_resolved(self) -> int:
+        """0 = auto: near_particle_cap (a cell that cannot fit the near
+        budget is one whose fallback multipole carries leaf-resolution
+        error)."""
+        return self.refine_threshold or self.near_particle_cap
+
     def cell_w2s(self, width):
-        """Squared cell widths for every walk level, computed from the box
-        width (a 0-d tensor) in its dtype."""
+        """Squared cell widths for every walk level, refined levels
+        included (index l = tree level l), computed from the box width (a
+        0-d tensor) in its dtype."""
         return tuple((width / (1 << l)) * (width / (1 << l))
-                     for l in range(self.max_level + 1))
+                     for l in range(self.max_level + self.refine_levels + 1))
 
     @staticmethod
     def auto_for(n: int, profile: str = "fast", **overrides) -> "BHConfig":
         """Size-adaptive preset: the JAX package's tiers
         (``traversal.py:570-721``), tuned on a TPU v5e and copied verbatim
-        for parity; they are still to be decided again on the H100."""
-        if profile == "adaptive":
-            _unported("profile='adaptive'", ROADMAP_ADAPTIVE)
-        if profile not in ("fast", "accurate", "dense"):
+        for parity; they are still to be decided again on the H100.
+        'adaptive' without positions takes the deep stack at
+        ADAPTIVE_CUT_MIN_N and above, the mid-N stack below
+        (``resolve_adaptive_overrides`` picks by scene)."""
+        if profile not in ("fast", "accurate", "dense", "adaptive"):
             raise ValueError(f"profile must be 'fast', 'accurate', 'dense' "
                              f"or 'adaptive', got {profile!r}")
         if n <= 32768:
@@ -254,6 +326,9 @@ class BHConfig:
                         window_pad=2048)
         if profile == "dense":
             base.update(DENSE_OVERRIDES)
+        if profile == "adaptive":
+            base.update(ADAPTIVE_OVERRIDES if n >= ADAPTIVE_CUT_MIN_N
+                        else ADAPTIVE_MIDN_OVERRIDES)
         if profile == "accurate" and n > 32768:
             base.update(window_pad=2048, block_dual=True)
         # overrides apply before chunk_groups is fitted to the final group
@@ -484,16 +559,70 @@ def _push_rows(slab, offset, rows, mask, cap: int):
     return slab, new_off, mask & ~keep
 
 
+def _capped(mask, cap: int):
+    """``mask`` with its entries past the first ``cap`` of each row
+    cleared (the order-preserving prefix a budget admits)."""
+    return mask & (torch.cumsum(mask.to(torch.int32), 1) <= cap)
+
+
+def _children(parents, keep, parent_cap: int):
+    """Compact the kept parents to ``parent_cap`` slots a group and list
+    their children: (ids [G, parent_cap * 8], valid).  Invalid slots hold
+    the children of parent 0, so every id indexes in range."""
+    p, pvalid, _ = _compact(parents, keep, parent_cap)
+    ids = (p[:, :, None] * BRANCH
+           + torch.arange(BRANCH, dtype=torch.int32, device=p.device)
+           ).reshape(p.shape[0], parent_cap * BRANCH)
+    return ids, pvalid.repeat_interleave(BRANCH, dim=1)
+
+
+def _cover(delta, occupied, cs, ce, wstart, wend, W: int):
+    """Cells whose sorted range lies wholly inside the group's window
+    (summed exactly by the window pass): marked in the coverage diff array
+    ``delta`` [G, W + 1] (+1 at the start, -1 past the end; column W is
+    trash).  Returns the covered mask."""
+    covered = occupied & (cs >= wstart[:, None]) & (ce <= wend[:, None])
+    inc = covered.to(torch.int32)
+    delta.scatter_add_(
+        1, torch.where(covered, cs - wstart[:, None], W).long(), inc)
+    delta.scatter_add_(
+        1, torch.where(covered, ce - wstart[:, None], W).long(), -inc)
+    return covered
+
+
+# elements of one [G, F, S, 3] block of the walk's distance test
+_RMIN_BLOCK = 1 << 25
+
+
+def _rmin2(com, gc, gh):
+    """Squared exact distance from each node COM [G, F, 3] to the union of
+    the group's subgroup boxes (centres gc, half-widths gh [G, S, 3]) ->
+    [G, F], over blocks of frontier slots so the [G, F, S, 3] temporary
+    stays bounded (each slot's minimum is computed whole, so the blocks
+    change no bit)."""
+    G, F, _ = com.shape
+    step = max(1, _RMIN_BLOCK // max(G * gc.shape[1] * 3, 1))
+    out = []
+    for f0 in range(0, F, step):
+        d = torch.clamp((com[:, f0:f0 + step, None, :] - gc[:, None]).abs()
+                        - gh[:, None], min=0.0)  # [G, f, S, 3]
+        out.append(_sq3(d).amin(dim=2))
+    return torch.cat(out, dim=1)
+
+
 def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                    window: int, gpos, gmass, gidx):
     """The collect walk for all G groups at once.
 
     gpos [G, B, 3], gmass [G, B], gidx [G, B] (sorted indices, int32) ->
     dict with the multipole slab ``mono`` [G, accept_cap, 8] (com, M, -1,
-    level or -1 for fb spill, cell id, level), the near cells ``near_ids`` /
-    ``near_valid`` [G, near_cell_cap], the window coverage ``wmask`` [G, W]
-    and start ``wstart`` [G], the group frame ``center`` [G, 3], the
-    fallback slab ``fb`` [G, fb_cap, 8] and the four walk counters [G]."""
+    level or -1 for fb spill and refined cells, cell id, level), the near
+    cells ``near_ids`` / ``near_valid`` [G, near_cell_cap], the window
+    coverage ``wmask`` [G, W] and start ``wstart`` [G], the group frame
+    ``center`` [G, 3], the fallback slab ``fb`` [G, fb_cap, 8] and the four
+    walk counters [G].  With ``cfg.refine_levels`` also the refined-near
+    ranges ``rnear`` [G, RC, 2] / ``rnear_valid`` [G, RC] and the counter
+    ``refine_near_totals`` [G] (their particles)."""
     G, B, _ = gpos.shape
     L = cfg.max_level
     W = window
@@ -544,6 +673,8 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     # window-coverage diff array (+1 at a covered range's start, -1 past its
     # end); slot W is trash
     delta = torch.zeros((G, W + 1), **i32)
+    R = cfg.refine_levels
+    rf_parent_cap = cfg.refine_frontier // BRANCH
 
     for l in range(cfg.start_level, L + 1):
         # one packed-row gather per slot: (m, mx, my, mz, start, end, _, _)
@@ -554,31 +685,27 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         com = row[..., 1:4] / torch.where(occupied, m, 1.0)[..., None]
         cs, ce = decode_ranges(row)
 
-        # cells wholly inside the window: summed exactly by the window pass
-        covered = (occupied & (cs >= wstart[:, None])
-                   & (ce <= wend[:, None]))
-        inc = covered.to(torch.int32)
-        delta.scatter_add_(
-            1, torch.where(covered, cs - wstart[:, None], W).long(), inc)
-        delta.scatter_add_(
-            1, torch.where(covered, ce - wstart[:, None], W).long(), -inc)
+        covered = _cover(delta, occupied, cs, ce, wstart, wend, W)
 
-        # exact distance from node COM to the union of subgroup boxes
-        d = torch.clamp((com[:, :, None, :] - gc[:, None, :, :]).abs()
-                        - gh[:, None, :, :], min=0.0)  # [G, F, S, 3]
-        rmin2 = _sq3(d).amin(dim=2)
-        accept = occupied & ~covered & (cell_w2[l] < thr * rmin2)
+        accept = occupied & ~covered & (cell_w2[l]
+                                        < thr * _rmin2(com, gc, gh))
         expand = occupied & ~covered & ~accept
 
         if l < L:
             # cells that would expand past the parent cap degrade to
             # self-excluded monopoles (counted, never dropped)
             parent_cap = sched[l - cfg.start_level] // BRANCH
-            overflowed = expand & (torch.cumsum(expand.to(torch.int32), 1)
-                                   > parent_cap)
+            overflowed = expand & ~_capped(expand, parent_cap)
             f_fallback = f_fallback + overflowed.sum(dim=1, dtype=torch.int32)
             expand = expand & ~overflowed
         else:
+            if R:
+                # flagged and materialized cells descend into the refined
+                # tables; past the refined frontier they keep the unrefined
+                # path
+                rbase = tree.refine_slot_leaf[ids.long()]
+                descend = _capped(expand & (rbase >= 0), rf_parent_cap)
+                expand = expand & ~descend
             # leaf level: unexpandable cells join the exact near field while
             # they fit the particle and cell budgets (order-preserving
             # prefix); the rest degrade to self-excluded monopoles
@@ -612,20 +739,88 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         a_dropped = a_dropped + mono_drop.sum(dim=1, dtype=torch.int32)
 
         if l < L:
-            parents, pvalid, _ = _compact(ids, expand, parent_cap)
-            ids = (parents[:, :, None] * BRANCH
-                   + torch.arange(BRANCH, dtype=torch.int32, device=dev)
-                   ).reshape(G, parent_cap * BRANCH)
-            valid = pvalid.repeat_interleave(BRANCH, dim=1)
+            ids, valid = _children(ids, expand, parent_cap)
         else:
             near_ids, near_valid, _ = _compact(ids, expand,
                                                cfg.near_cell_cap)
+            if R:
+                rids, rvalid = _children(rbase, descend, rf_parent_cap)
+
+    # refined levels: the same rules over the slot-indexed refined tables.
+    # ``rids`` are rows of refine_tables[r - 1]; children of a row j that
+    # was refined further are rows child_slot[j] * 8 + k.  Accepted cells
+    # and spill ride the multipole slab as level -1 rows (no quadrupole),
+    # unexpandable cells become explicit sorted ranges under per-group
+    # cumulative budgets, and overflow keeps the self-excluded fallback.
+    RC = cfg.refine_near_cell_cap
+    if R:
+        rnear = torch.zeros((G, RC + 1, 2), **i32)  # column RC is trash
+        rn_off = torch.zeros((G,), **i32)
+        rn_pcnt = torch.zeros((G,), **i32)
+    for r in range(1, R + 1):
+        row = tree.refine_tables[r - 1][rids.long()]  # [G, F, 8]
+        m = torch.where(rvalid, row[..., 0], 0.0)
+        row = torch.cat([m[..., None], row[..., 1:]], dim=-1)
+        occupied = m > 0
+        com = row[..., 1:4] / torch.where(occupied, m, 1.0)[..., None]
+        cs, ce = decode_ranges(row)
+        covered = _cover(delta, occupied, cs, ce, wstart, wend, W)
+        accept = occupied & ~covered & (cell_w2[L + r]
+                                        < thr * _rmin2(com, gc, gh))
+        expand = occupied & ~covered & ~accept
+        if r < R:
+            # rids are in range for every slot (compacted rows of slot 0
+            # where invalid), so the gather never reads a -1
+            rbase = torch.where(
+                rvalid, tree.refine_child_slot[r - 1][rids.long()], -1)
+            descend = _capped(expand & (rbase >= 0), rf_parent_cap)
+            expand = expand & ~descend
+
+        # refined-near ranges under the budgets left by the earlier levels
+        cnt = torch.where(expand, ce - cs, 0)
+        inc_n = (expand
+                 & (rn_pcnt[:, None] + torch.cumsum(cnt, 1)
+                    <= cfg.refine_near_particle_cap)
+                 & (rn_off[:, None] + torch.cumsum(expand.to(torch.int32), 1)
+                    <= RC))
+        overflowed = expand & ~inc_n
+        n_fallback = n_fallback + overflowed.sum(dim=1, dtype=torch.int32)
+        slot = rn_off[:, None] + torch.cumsum(inc_n.to(torch.int32), 1) - 1
+        write = torch.where(inc_n & (slot < RC), slot, RC).long()
+        rnear.scatter_(1, write[..., None].expand(-1, -1, 2),
+                       torch.stack([cs, ce], dim=-1))
+        rn_off = torch.clamp(rn_off + inc_n.sum(dim=1), max=RC).to(
+            torch.int32)
+        rn_pcnt = rn_pcnt + torch.where(inc_n, cnt, 0).sum(
+            dim=1, dtype=torch.int32)
+
+        # fallback rows: self-exclusion by range containment; slots 6/7
+        # hold (-1, 0), as refined rows have no (level, cell id) address
+        neg = torch.full_like(m, -1.0)
+        zero = torch.zeros_like(m)
+        fbrow = torch.cat([row[..., :6], neg[..., None], zero[..., None]],
+                          dim=-1)
+        fb, fb_off, fb_drop = _push_rows(fb, fb_off, fbrow, overflowed, FB)
+        fb_spill = fb_spill + fb_drop.sum(dim=1, dtype=torch.int32)
+        mrows = torch.stack([com[..., 0], com[..., 1], com[..., 2], m, neg,
+                             neg, zero, neg], dim=-1)
+        mono, mono_off, mono_drop = _push_rows(mono, mono_off, mrows,
+                                               accept | fb_drop, A)
+        a_dropped = a_dropped + mono_drop.sum(dim=1, dtype=torch.int32)
+        if r < R:
+            rids, rvalid = _children(rbase, descend, rf_parent_cap)
 
     wmask = torch.cumsum(delta, dim=1)[:, :W] > 0
-    return dict(mono=mono[:, :A], near_ids=near_ids, near_valid=near_valid,
-                wmask=wmask, wstart=wstart, center=center, fb=fb[:, :FB],
-                accept_dropped=a_dropped, frontier_fallback=f_fallback,
-                near_fallback=n_fallback, fb_spill=fb_spill)
+    out = dict(mono=mono[:, :A], near_ids=near_ids, near_valid=near_valid,
+               wmask=wmask, wstart=wstart, center=center, fb=fb[:, :FB],
+               accept_dropped=a_dropped, frontier_fallback=f_fallback,
+               near_fallback=n_fallback, fb_spill=fb_spill)
+    if R:
+        out.update(rnear=rnear[:, :RC],
+                   rnear_valid=(torch.arange(RC, **i32)[None, :]
+                                < rn_off[:, None]),
+                   refine_near_totals=rn_pcnt)
+    return out
 
 
 def _expand_ranges(leaf_table, cell_ids, cell_valid, cap: int):
@@ -1005,9 +1200,31 @@ def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
     G = n_tot // B
     tgt8 = pmass8.reshape(G, B, 8)
     gidx = torch.arange(n_tot, dtype=torch.int32, device=dev).reshape(G, B)
+    if cfg.refine_levels and tree.refine_tables is None:
+        raise ValueError(
+            "cfg.refine_levels > 0 but the tree was built without "
+            "refinement (pass refine_levels/refine_cap/refine_threshold "
+            "to build_octree)")
     walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
                           cfg, W, tgt8[..., :3], tgt8[..., 3], gidx)
     return eps2, pmass8, tgt8, gidx, W, walk
+
+
+def _near_lists(tree, walk, cfg: BHConfig):
+    """The near cells' particle lists, all groups at once, with the refined
+    near ranges (refine_levels > 0) concatenated after them:
+    (pidx [G, P], pvalid [G, P], the leaf list's totals [G])."""
+    pidx, pvalid, ntot = _expand_ranges(
+        tree.level_table[cfg.max_level], walk["near_ids"],
+        walk["near_valid"], cfg.near_particle_cap)
+    if cfg.refine_levels:
+        rnear = walk["rnear"]
+        pidx_r, pvalid_r, _ = _expand_from_ranges(
+            rnear[..., 0], rnear[..., 1], walk["rnear_valid"],
+            cfg.refine_near_particle_cap)
+        pidx = torch.cat([pidx, pidx_r], dim=1)
+        pvalid = torch.cat([pvalid, pvalid_r], dim=1)
+    return pidx, pvalid, ntot
 
 
 def _walk_counters(walk) -> dict:
@@ -1041,10 +1258,7 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
     acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
     mark("fb")
 
-    # near cells -> flat particle lists, all groups at once
-    pidx, pvalid, ntot = _expand_ranges(
-        tree.level_table[cfg.max_level], walk["near_ids"],
-        walk["near_valid"], cfg.near_particle_cap)
+    pidx, pvalid, ntot = _near_lists(tree, walk, cfg)
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2, g, eps2,
         g_soft, cfg, W, mode, mark)
@@ -1061,6 +1275,11 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
         "window_cov": walk["wmask"].to(dtype).mean(),
         "slab_fill": slab_fill,
     }
+    if cfg.refine_levels:
+        # refined-near particles a group, and the flagged cells the build
+        # could not materialize (they kept the unrefined path)
+        stats["refine_near_totals"] = walk["refine_near_totals"]
+        stats["refine_build_dropped"] = tree.refine_stats[1]
     return out, stats
 
 
@@ -1110,15 +1329,19 @@ def traverse_tree_phi(tree, bounds, theta2, g, g_soft, cfg: BHConfig,
     eps2, pmass8, tgt8, gidx, W, walk = _walk(tree, bounds, theta2, g_soft,
                                               cfg, n)
     phi_fb = _fb_phi(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
-    pidx, pvalid, _ = _expand_ranges(
-        tree.level_table[cfg.max_level], walk["near_ids"],
-        walk["near_valid"], cfg.near_particle_cap)
+    pidx, pvalid, _ = _near_lists(tree, walk, cfg)
     nrows = _near_rows(pmass8, pidx, pvalid)
     wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
     slab = torch.cat([wrows, nrows, walk["mono"]], dim=1)
     phi = _phi_slab_eval(slab, tgt8, g, eps2) + phi_fb
     u = 0.5 * (tgt8[..., 3] * phi).sum()
     return u, _walk_counters(walk)
+
+
+def _refine_args(cfg: BHConfig) -> dict:
+    """The refined build's arguments of ``build_octree`` for ``cfg``."""
+    return dict(refine_levels=cfg.refine_levels, refine_cap=cfg.refine_cap,
+                refine_threshold=cfg.refine_threshold_resolved)
 
 
 def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
@@ -1135,9 +1358,8 @@ def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
     b0 = bounds.centered()
     tree = build_octree(pos_c, mass, b0, cfg.max_level,
                         quad=cfg.multipole == "quad",
-                        quad_leaf=cfg.quad_leaf)
-    if mark is not None:
-        mark("build")
+                        quad_leaf=cfg.quad_leaf, mark=mark,
+                        **_refine_args(cfg))
     return traverse_tree(tree, b0, theta2, g, g_soft, cfg, pos.shape[0],
                          mark=mark)
 
@@ -1151,5 +1373,6 @@ def bh_potential(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None):
     cfg = BHConfig() if cfg is None else cfg
     pos_c = pos - bounds.center
     b0 = bounds.centered()
-    tree = build_octree(pos_c, mass, b0, cfg.max_level, quad=False)
+    tree = build_octree(pos_c, mass, b0, cfg.max_level, quad=False,
+                        **_refine_args(cfg))
     return traverse_tree_phi(tree, b0, theta2, g, g_soft, cfg, pos.shape[0])

@@ -1,5 +1,6 @@
 """Linear octree build: Morton sort + dense level pyramid (the counterpart
-of ``nbody_tpu/ops/tree.py``, unrefined 3D path).
+of ``nbody_tpu/ops/tree.py``, 3D path), with optional density-adaptive
+refined levels below the leaf grid (``refine_levels > 0``).
 
 The octree is a dense pyramid of per-level cell statistics over the
 2^L x 2^L x 2^L Morton grid: level l has 8^l cells and cell c's children are
@@ -54,6 +55,23 @@ class LinearOctree:
     #: (level l starts at row level_offset(l)): (Sxx, Syy, Szz, Sxy, Sxz,
     #: Syz, 0, 0).  None when built with quad=False.
     all_quad: Optional[torch.Tensor]
+    #: density-adaptive refinement (built with refine_levels > 0, else all
+    #: None).  refine_tables[r] holds the children of the level-(L + r)
+    #: flagged cells as packed node rows [refine_cap * 8, 8] in the
+    #: level_table format; the parent of row j is slot j // 8, and invalid
+    #: slots carry zero mass and an empty range.  Particles are sorted by
+    #: deep Morton codes (depth L + refine_levels, same grid), so every
+    #: refined cell is one contiguous sorted range.
+    refine_tables: Optional[Tuple[torch.Tensor, ...]] = None
+    #: [8^L] int32: flagged leaf cell -> its parent slot in refine_tables[0]
+    #: (children at rows slot * 8 + k), -1 otherwise
+    refine_slot_leaf: Optional[torch.Tensor] = None
+    #: per refined level r < R: [refine_cap * 8] int32, a refine_tables[r]
+    #: row -> its parent slot in refine_tables[r + 1], -1 if not refined
+    refine_child_slot: Optional[Tuple[torch.Tensor, ...]] = None
+    #: [2] int32: flagged cells over all levels, and those dropped because
+    #: refine_cap was full (they keep the unrefined near/fallback path)
+    refine_stats: Optional[torch.Tensor] = None
 
     @property
     def max_level(self) -> int:
@@ -138,11 +156,12 @@ def _prefix_range_sums(vals, starts):
     return d[:, :k] + d[:, k:2 * k]
 
 
-def _prefix_leaf_stats(pos_s, mass_s, leaf_starts):
-    """Leaf-cell (mass, mass-weighted position) via _prefix_range_sums."""
-    w4 = torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1)
-    vals = _prefix_range_sums(w4, leaf_starts)
-    return vals[:, 0], vals[:, 1:4]
+def _range_sums_from_table(p, starts, ends, k: int):
+    """Per-range sums from a ``_build_prefix_table`` table for arbitrary
+    (start, end) pairs (the refined build's ranges are not consecutive
+    boundaries), with _prefix_range_sums' double-float accuracy."""
+    d = p[ends.long()] - p[starts.long()]
+    return d[:, :k] + d[:, k:2 * k]
 
 
 def _build_quad(pos_s, mass_s, leaf_starts, max_level: int):
@@ -192,6 +211,82 @@ def _compact(ids, keep, out_slots: int):
     return out[..., :out_slots], valid, dropped
 
 
+def _slot_map(keys, valid, size: int, n_slots: int):
+    """[size] int32 map from a compacted key list to its slot: entry
+    ``keys[s]`` holds s where ``valid[s]``, every other entry -1.  Invalid
+    slots write to a trash entry at ``size`` (sliced off), so no index is
+    ever negative."""
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=keys.device)
+    out[torch.where(valid, keys, size).long()] = torch.arange(
+        n_slots, dtype=torch.int32, device=keys.device)
+    return out[:size]
+
+
+def _build_refined(p, deep_code_s, leaf_counts, max_level: int,
+                   refine_levels: int, refine_cap: int, threshold: int,
+                   ftype):
+    """Density-adaptive levels below the dense pyramid's leaf grid
+    (``nbody_tpu/ops/tree.py:294-393``).
+
+    Leaf cells holding more than ``threshold`` particles are flagged and
+    their children materialized as packed node rows; children still above
+    the threshold recurse, up to ``refine_levels`` extra levels with at
+    most ``refine_cap`` refined parents a level (beyond it the cell keeps
+    the unrefined path, counted).  The particles are sorted by deep Morton
+    codes, so a refined cell's sorted range is one search of its code
+    bounds (lo || hi in one ``searchsorted`` a level); mass and m·pos are
+    differences of the leaf stats' double-float prefix table ``p`` of
+    (m, m x, m y, m z).
+
+    Returns (refine_tables, refine_slot_leaf, refine_child_slot,
+    refine_stats), as the LinearOctree fields."""
+    n_leaf = BRANCH ** max_level
+    l_deep = max_level + refine_levels
+    rows_per = refine_cap * BRANCH
+    dev = p.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    kids = torch.arange(BRANCH, **i32)
+
+    flagged = leaf_counts > threshold
+    p_codes, p_valid, dropped = _compact(torch.arange(n_leaf, **i32),
+                                         flagged, refine_cap)
+    total_flagged = flagged.sum(dtype=torch.int32)
+    total_dropped = dropped.to(torch.int32)
+    slot_leaf = _slot_map(p_codes, p_valid, n_leaf, refine_cap)
+
+    tables, child_maps = [], []
+    for r in range(1, refine_levels + 1):
+        child_codes = (p_codes[:, None] * BRANCH + kids).reshape(rows_per)
+        child_valid = p_valid.repeat_interleave(BRANCH)
+        # (code + 1) << shift reaches 8^l_deep = 2^30 at depth 10: int32
+        shift = 3 * (l_deep - (max_level + r))
+        lo = torch.where(child_valid, child_codes << shift, 0)
+        hi = torch.where(child_valid, (child_codes + 1) << shift, 0)
+        bounds_ = torch.searchsorted(deep_code_s, torch.cat([lo, hi]),
+                                     side="left").to(torch.int32)
+        cs = torch.where(child_valid, bounds_[:rows_per], 0)
+        ce = torch.where(child_valid, bounds_[rows_per:], 0)
+        sums = _range_sums_from_table(p, cs, ce, 4)
+        m = torch.where(child_valid & (ce > cs), sums[:, 0], 0.0)
+        zero = torch.zeros((rows_per,), dtype=ftype, device=dev)
+        tables.append(torch.stack(
+            [m.to(ftype), sums[:, 1].to(ftype), sums[:, 2].to(ftype),
+             sums[:, 3].to(ftype), cs.to(ftype), ce.to(ftype), zero, zero],
+            dim=1))
+        if r < refine_levels:
+            flag_r = child_valid & (ce - cs > threshold)
+            p_rows, p_valid, dropped = _compact(torch.arange(rows_per, **i32),
+                                                flag_r, refine_cap)
+            total_flagged = total_flagged + flag_r.sum(dtype=torch.int32)
+            total_dropped = total_dropped + dropped.to(torch.int32)
+            child_maps.append(_slot_map(p_rows, p_valid, rows_per,
+                                        refine_cap))
+            p_codes = torch.where(p_valid, child_codes[p_rows.long()], 0)
+
+    stats = torch.stack([total_flagged, total_dropped])
+    return tuple(tables), slot_leaf, tuple(child_maps), stats
+
+
 def _check_range_dtype(n: int, ftype) -> None:
     """Packed node rows store particle-range starts/ends in the position
     dtype; counts beyond its mantissa (2^24 in f32, 2^53 in f64) would
@@ -238,10 +333,21 @@ def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
 
 
 def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
-                 quad_leaf: bool = False) -> LinearOctree:
+                 quad_leaf: bool = False, refine_levels: int = 0,
+                 refine_cap: int = 8192, refine_threshold: int = 512,
+                 mark=None) -> LinearOctree:
     """pos [N, 3], mass [N] (dead particles already at mass 0) -> the
     octree.  ``bounds`` is the domain box; the grid is its half-leaf-shifted
-    version (grid_bounds)."""
+    version (grid_bounds).
+
+    ``refine_levels > 0`` adds up to that many density-adaptive levels below
+    the leaf grid for cells holding more than ``refine_threshold``
+    particles (_build_refined).  The particles are then sorted by deep
+    Morton codes on the same grid, so ``code_s`` (their leaf-level
+    prefixes) and the dense pyramid are unchanged; only the order within a
+    leaf cell differs.  ``mark``, if given, is called with "build" after
+    the dense pyramid and "refined build" after the refined levels
+    (on-card timing)."""
     n = pos.shape[0]
     _check_range_dtype(n, pos.dtype)
     if pos.shape[1] != 3:
@@ -252,21 +358,26 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
         raise NotImplementedError(
             "quad_leaf=True (leaf-level quadrupoles) is not yet ported to "
             "nbody_tpu_torch (ROADMAP.md, queue 1, item 18)")
-    if max_level > morton.MAX_LEVEL_3D:
-        raise ValueError(f"max_level {max_level} exceeds the 3D Morton code "
-                         f"depth limit ({morton.MAX_LEVEL_3D})")
+    l_deep = max_level + refine_levels
+    if l_deep > morton.MAX_LEVEL_3D:
+        raise ValueError(
+            f"max_level + refine_levels = {l_deep} exceeds the 3D Morton "
+            f"code depth limit ({morton.MAX_LEVEL_3D})")
     n_leaf = BRANCH ** max_level
     gb = grid_bounds(bounds, max_level)
-    codes = morton.cell_codes(pos, gb, max_level)
+    codes = morton.cell_codes(pos, gb, l_deep)
     # dead particles get the sentinel: they sort to the tail and match no
     # cell range
-    codes = torch.where(mass > 0, codes, n_leaf)
+    codes = torch.where(mass > 0, codes, BRANCH ** l_deep)
 
     # a stable sort is the JAX package's payload-carrying lax.sort with an
     # iota payload: the same permutation
-    code_s, order = torch.sort(codes, stable=True)
+    deep_code_s, order = torch.sort(codes, stable=True)
     pos_s = pos[order]
     mass_s = mass[order]
+    # leaf codes are the deep codes' prefixes (the sentinel 8^l_deep maps
+    # to 8^L); with refine_levels == 0 this is the identity
+    code_s = deep_code_s >> (3 * refine_levels)
 
     # leaf cell c holds the sorted slots [start(c), start(c + 1)), start(c)
     # = #codes < c; a search needs no host sync, where torch.bincount reads
@@ -276,8 +387,12 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
                              device=pos.device)).to(torch.int32)
     leaf_counts = leaf_starts[1:] - leaf_starts[:-1]
     # both of the JAX package's leaf branches (prefix sums when 4N >= 8^L,
-    # sorted segment-sums otherwise) become the prefix path here
-    leaf_mass, leaf_mpos = _prefix_leaf_stats(pos_s, mass_s, leaf_starts)
+    # sorted segment-sums otherwise) become the prefix path here; the
+    # refined build reuses the table
+    table = _build_prefix_table(
+        torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
+    leaf = _range_sums_from_table(table, leaf_starts[:-1], leaf_starts[1:], 4)
+    leaf_mass, leaf_mpos = leaf[:, 0], leaf[:, 1:4]
 
     level_mass, level_mpos, level_table = _pyramid_tables(
         leaf_mass, leaf_mpos, leaf_counts, max_level, pos.dtype)
@@ -287,10 +402,23 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
         q, top = _build_quad(pos_s, mass_s, leaf_starts, max_level)
         all_quad = _quad_pyramid(q, top, pos.dtype)
 
+    if mark is not None:
+        mark("build")
+    refine = {}
+    if refine_levels > 0:
+        tables, slot_leaf, child_maps, rstats = _build_refined(
+            table, deep_code_s, leaf_counts, max_level,
+            refine_levels, refine_cap, refine_threshold, pos.dtype)
+        refine = dict(refine_tables=tables, refine_slot_leaf=slot_leaf,
+                      refine_child_slot=child_maps, refine_stats=rstats)
+        if mark is not None:
+            mark("refined build")
+
     return LinearOctree(pos_s=pos_s, mass_s=mass_s, code_s=code_s,
                         order=order, leaf_starts=leaf_starts,
                         level_mass=level_mass, level_mpos=level_mpos,
-                        level_table=level_table, all_quad=all_quad)
+                        level_table=level_table, all_quad=all_quad,
+                        **refine)
 
 
 def cell_ranges(tree: LinearOctree, cell_ids, level: int):

@@ -101,6 +101,17 @@ def test_set_settings_live():
                                 dict(engine="bh", engine_options=dict(
                                     sliding_window=True))])
 def test_unported_options_raise(kw):
+    """Options of paths not ported yet raise.  profile='adaptive' (ROADMAP
+    item 15) is ported: without max_level / refine_levels it resolves the
+    scene's stack as the JAX package does (the 51-particle disc: mid-N)."""
+    if kw.get("engine_options") == dict(profile="adaptive"):
+        from nbody_tpu.ops.traversal import ADAPTIVE_MIDN_OVERRIDES
+
+        sim = make(50, **kw)
+        assert sim.engine_options == dict(profile="adaptive",
+                                          **ADAPTIVE_MIDN_OVERRIDES)
+        assert "refine_levels=4" in sim.engine.description
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make(50, **kw)
 
@@ -126,8 +137,24 @@ def test_unknown_device_and_engine():
                                   ["--adaptive"],
                                   ["--refine", "2"], ["--walk-every", "3"]])
 def test_cli_unported_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["-n", "10", "--steps", "1", "--cpu", *flag])
+    """Flags of paths not ported yet exit naming the path.  --adaptive and
+    --refine (ROADMAP item 15) are ported: on the default engine 'auto'
+    they exit with the JAX package's message, and on a bh engine they run
+    2 steps of a small Plummer sphere on the CPU."""
+    argv = ["-n", "10", "--steps", "1", "--cpu", *flag]
+    if "--adaptive" not in flag and "--refine" not in flag:
+        with pytest.raises(SystemExit, match="not yet ported"):
+            cli.main(argv)
+        return
+    if "--engine" not in flag:
+        with pytest.raises(SystemExit, match="applies to bh/bh-deep only"):
+            cli.main(argv)
+        flag = ["--engine", "bh", *flag]
+    res = cli.main(["-n", "1000", "--steps", "2", "--chunk", "1",
+                    "--scene", "plummer", "--box-width", "40", "--device",
+                    "cpu", "--energy", "--json", *flag])
+    assert res["engine"] == flag[1] and res["steps"] == 2
+    assert res["n_alive"] > 0 and np.isfinite(res["energy_drift"])
 
 
 def test_cli_text_output_f64_cpu(capsys):
@@ -148,15 +175,20 @@ def test_cli_bh_profiles_need_a_bh_engine(flag):
 
 def test_auto_engine_refuses_steep_core_scenes():
     """engine='auto' above N = 60000 detects a steep core as the JAX package
-    does; it would route it to the unported adaptive profile, so it raises
-    rather than run the disc-tuned profile.  The disc itself passes."""
-    from nbody_tpu_torch.api import _check_scene_profile
+    does and routes it to profile='adaptive' with the scene's stack (ROADMAP
+    item 15, ported); the disc keeps the fast profile.  Constructing the
+    Simulation runs no step."""
+    from nbody_tpu.ops.traversal import ADAPTIVE_MIDN_OVERRIDES
     from nbody_tpu_torch.scenes import SCENES
 
-    _check_scene_profile(SCENES["disc"](70000, seed=0)[0], (0, 0, 0), 10.0)
-    plummer = SCENES["plummer"](70000, seed=0)[0]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _check_scene_profile(plummer, (0, 0, 0), 40.0)
+    disc = Simulation(*SCENES["disc"](70000, seed=0), engine="auto",
+                      device="cpu")
+    assert disc.engine.name == "bh" and disc.engine_options == {}
+    plummer = Simulation(*SCENES["plummer"](70000, seed=0), engine="auto",
+                         bounds_width=40.0, device="cpu")
+    assert plummer.engine.name == "bh"
+    assert plummer.engine_options == dict(profile="adaptive",
+                                          **ADAPTIVE_MIDN_OVERRIDES)
 
 
 def test_bh_engines_and_their_limits():

@@ -1,6 +1,6 @@
 """The CUDA kernels K1-K6 against their plain torch twins on the card, and
-the bh (with and without near_sym) and brute-pallas-mxu engines on the card
-against the CPU path.
+the bh (with and without near_sym, and refined) and brute-pallas-mxu
+engines on the card against the CPU path.
 
 Marked ``cuda``: they need an NVIDIA GPU (sm_90a) and nvcc, and skip
 without them.  Run them on the card with
@@ -314,6 +314,74 @@ def test_bh_on_card_matches_cpu(dev):
     with pytest.raises(TypeError, match="float32"):
         Simulation(pos, vel, mass, device="cuda", dtype=torch.float64,
                    **kw).update_forces()
+
+
+def _clustered(n=4096, seed=0):
+    """tests/test_refine.py's scene: half a tight core, half uniform."""
+    rng = np.random.default_rng(seed)
+    pos = np.concatenate([rng.normal(0, 0.03, (n // 2, 3)),
+                          rng.uniform(-4, 4, (n // 2, 3))]).astype(np.float32)
+    return torch.from_numpy(pos), torch.full((n,), 1.0 / n)
+
+
+# tests/test_torch_refine.py's refined config (starved unrefined budgets)
+REFINED = dict(max_level=4, group_size=512, subgroups=16, window_pad=128,
+               near_particle_cap=256, near_cell_cap=256, frontier_cap=2048,
+               accept_cap=2048, fb_cap=256, chunk_groups=1, start_level=2,
+               refine_levels=2, refine_cap=512, refine_frontier=512)
+
+
+@pytest.mark.parametrize("cap", [64, 2])
+def test_refined_build_on_card_matches_cpu(dev, cap):
+    """The refined build on the card: every integer output equal to the
+    CPU build's, the tables' sums within f32 rounding."""
+    from nbody_tpu_torch.core.state import Bounds
+    from nbody_tpu_torch.ops.tree import build_octree
+
+    pos, mass = _clustered()
+    kw = dict(max_level=3, refine_levels=2, refine_cap=cap,
+              refine_threshold=64)
+    b = Bounds.cube((0.0, 0.0, 0.0), 10.0)
+    cpu = build_octree(pos, mass, b, **kw)
+    gpu = build_octree(pos.to(dev), mass.to(dev),
+                       Bounds.cube((0.0, 0.0, 0.0), 10.0, device=dev), **kw)
+    for name in ("order", "code_s", "leaf_starts", "refine_slot_leaf",
+                 "refine_stats"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for g, c in zip(gpu.refine_child_slot, cpu.refine_child_slot):
+        assert torch.equal(g.cpu(), c)
+    for g, c in zip(gpu.refine_tables, cpu.refine_tables):
+        assert torch.equal(g[:, 4:].cpu(), c[:, 4:])
+        torch.testing.assert_close(g[:, :4].cpu(), c[:, :4], rtol=1e-6,
+                                   atol=1e-6 * float(c[:, :4].abs().max()))
+
+
+def test_refined_bh_on_card_matches_cpu(dev):
+    """The refined walk on the card through K3 and K4 against the plain
+    torch path on the CPU (d-form, what the kernels compute): the same
+    counters and forces within f32 summation order; two calls bitwise
+    equal."""
+    from nbody_tpu_torch.core.state import Bounds
+
+    pos, mass = _clustered()
+    out = {}
+    for d, over in (("cpu", dict(mxu_blocks=False)), (dev, {})):
+        b = Bounds.cube((0.0, 0.0, 0.0), 10.0, device=d)
+        args = (pos.to(d), mass.to(d), b, 1.0, 1.0, 1e-2,
+                tt.BHConfig(**REFINED, **over))
+        gf.reset_launch_counts()
+        out[d] = tt.bh_accel(*args)
+        if d != "cpu":
+            counts = gf.launch_counts()
+            assert counts["group_force"] == 1 and counts["quad_force"] == 1
+            assert torch.equal(out[d][0], tt.bh_accel(*args)[0])
+    (ac, sc), (ag, sg) = out["cpu"], out[dev]
+    for k in ("accept_dropped", "frontier_fallback", "near_fallback",
+              "fb_spill", "near_totals", "refine_near_totals",
+              "refine_build_dropped"):
+        assert torch.equal(sg[k].cpu(), sc[k]), k
+    assert int(sg["refine_near_totals"].sum()) > 0
+    assert _rel_err(ag.cpu(), ac) < 1e-5
 
 
 @pytest.mark.parametrize("B,masked,g_soft", [(2048, 0.3, EPS), (1000, 0.0, EPS),
