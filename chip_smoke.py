@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs nineteen phases, each
+(one nvcc per source, all at once), then runs twenty phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -96,7 +96,16 @@ printing one line and stopping the script with a non-zero exit on failure:
      two force calls bitwise equal, the sampled error printed; K3 and K4
      against their twins on the real adaptive
      slabs; ``--adaptive --energy`` through the CLI; one deep force call
-     split by phase, the refined build apart.
+     split by phase, the refined build apart;
+ 20. the visualizer (``vis_phase``): ``VisServer`` on the 1M ``bh`` disc,
+     driven over HTTP: the paused payloads (positions bitwise the
+     decimated state), at least 12 steps unpaused with positions and boxes
+     polled meanwhile, well-formed boxes, rewind through /api/control,
+     ``stop()``; K3 and K4 from the handler thread's ``aux()`` bitwise the
+     step's own force call and against their twins; ``Simulation.compile``
+     at 1M; the deep stack's refined levels in ``aux()``; ``flops_of`` of
+     one step equal to ``bound``'s pair counts (K1 at 65536, K3 + K4 at
+     1M).
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -126,18 +135,9 @@ G, EPS = 1.0, 0.02  # the main-path settings (the CLI defaults)
 FP32_PER_S = 67e12
 BYTES_PER_S = 3.35e12
 RSQRT_PER_S = 132 * 16 * 1.98e9
-# FP32 arithmetic a pair (an FMA counts two; compares, selects and integer
-# work are not FP32 operations and are not counted), read off the kernels:
-#   d-form, one direction (K2, K3): 3 sub, |d|^2 + eps^2 6, ir^3 2,
-#     * m 1, three FMAs 6                                             = 18
-#   Newton-3 (K1, K5) per unordered pair: those 18, m_i * ir^3 1, three
-#     column FMAs 6                                                   = 25
-#   quadrupole (K4): e 3, r^2 6, ir^2..ir^7 4, Q e 15, e.Qe 5, w 4,
-#     three (w e - ir^5 u) 12                                         = 49
-#     (its 1/r: one MUFU rsqrt, and the seven FP32 instructions that
-#     round it as the twin's float64 rsqrt does, outside this count)
-#   norm trick (K6): cross 5, r^2 4, ir^3 2, * m 1, four sums 7       = 19
-OPS = {"pair": 18, "sym": 25, "quad": 49, "mxu": 19}
+# FP32 operations a pair of each kernel family ("pair" K2/K3, "sym" K1/K5,
+# "quad" K4, "mxu" K6) come from the package's table
+# (nbody_tpu_torch/ops/work.py PAIR_OPS), which flops_of counts with too
 
 
 def require(ok, msg):
@@ -164,13 +164,21 @@ def rows_err(got, ref) -> float:
     return rel_err(got.reshape(-1, 3), ref.reshape(-1, 3))
 
 
-def bound(pairs, ops_per_pair, nbytes, rsqrts=None):
+def pair_ops(kind) -> int:
+    """FP32 operations a pair of a kernel family (the package's table)."""
+    from nbody_tpu_torch.ops.work import PAIR_OPS
+
+    return PAIR_OPS[kind]
+
+
+def bound(pairs, kind, nbytes, rsqrts=None):
     """The least time the card could take (ms) and what sets it: the
-    larger of the operations over their peak rate (FP32, or the rsqrts on
-    the MUFU where those take longer) and the bytes over the memory rate
-    (each input read once, each output written once)."""
+    larger of the operations (``pairs`` x ``pair_ops(kind)``) over their peak
+    rate (FP32, or the rsqrts on the MUFU where those take longer) and the
+    bytes over the memory rate (each input read once, each output written
+    once)."""
     rsqrts = pairs if rsqrts is None else rsqrts
-    t_ops = max(pairs * ops_per_pair / FP32_PER_S, rsqrts / RSQRT_PER_S)
+    t_ops = max(pairs * pair_ops(kind) / FP32_PER_S, rsqrts / RSQRT_PER_S)
     t_bytes = nbytes / BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -181,25 +189,32 @@ def nnz(x) -> int:
     return int((x != 0).sum())
 
 
-def k3_bound(tgt8, slab, tile, mask):
+def k3_pairs(tgt8, slab, tile, mask):
     """K3 needs each target against each massive slab row outside the
     source tiles its mask entry skips."""
     Gs, B = tgt8.shape[:2]
     S = slab.shape[1]
     nz = (slab[..., 3] != 0).reshape(Gs, S // tile, tile).sum(-1)
     if mask is None:
-        pairs = B * int(nz.sum())
-    else:
-        pairs = (B // mask.shape[1]) * int(
-            ((~mask.bool()).to(nz.dtype) * nz[:, None, :]).sum())
-    return bound(pairs, OPS["pair"],
-                 Gs * B * 24 + Gs * S * 16
+        return B * int(nz.sum())
+    return (B // mask.shape[1]) * int(
+        ((~mask.bool()).to(nz.dtype) * nz[:, None, :]).sum())
+
+
+def k3_bound(tgt8, slab, tile, mask):
+    Gs, B = tgt8.shape[:2]
+    return bound(k3_pairs(tgt8, slab, tile, mask), "pair",
+                 Gs * B * 24 + Gs * slab.shape[1] * 16
                  + (0 if mask is None else mask.numel()))
+
+
+def k4_pairs(tgt8, qslab):
+    return tgt8.shape[1] * nnz(qslab[..., 3])
 
 
 def k4_bound(tgt8, qslab):
     Gs, B = tgt8.shape[:2]
-    return bound(B * nnz(qslab[..., 3]), OPS["quad"],
+    return bound(k4_pairs(tgt8, qslab), "quad",
                  Gs * B * 24 + qslab.shape[1] * Gs * 40)
 
 
@@ -242,13 +257,14 @@ def split_call(run):
     return split
 
 
-def record_calls(run, names=("group_force", "quad_force")):
-    """Run ``run()`` with the kernel wrappers ``names`` of ops/group_force
-    spied on: returns {name: [(args, kwargs), ...]}, the slabs the walk
-    gave each kernel."""
+def record_calls(run, names=("group_force", "quad_force"), module=None):
+    """Run ``run()`` with the kernel wrappers ``names`` of ``module``
+    (ops/group_force by default) spied on: returns {name: [(args, kwargs),
+    ...]}, the slabs the walk gave each kernel."""
     import torch
-    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import group_force
 
+    gf = group_force if module is None else module
     calls = {k: [] for k in names}
     orig = {k: getattr(gf, k) for k in names}
 
@@ -468,6 +484,304 @@ def adaptive_phase():
         f"force call (ms): {json.dumps(out['split'])}, "
         f"{1e3 / out['split']['total']:.3f} force calls/s")
     print("[19 adaptive] " + " | ".join(parts), flush=True)
+    return out
+
+
+# phase 20: the visualizer at the bh main path's full width (the JAX
+# package's done criterion for it was python -m nbody_tpu.vis --n 1000000)
+VIS_N = 1048575  # + the star: 2^20 rows
+VIS_MAX_POINTS = 100_000
+VIS_MIN_STEPS = 12
+VIS_WAIT_S = 120.0
+FLOPS_BRUTE_N = 65535  # + the star: the 65536 brute-pallas run (K1)
+ADAPTIVE_N = 1 << 20
+
+
+def k1_pairs(pos, mass) -> int:
+    """K1 needs every unordered pair with a massive member once."""
+    n, nm = pos.shape[0], nnz(mass)
+    return nm * (nm - 1) // 2 + nm * (n - nm)
+
+
+def spy_kernels(run):
+    """``run()`` with K3 and K4 spied on, in whichever thread calls them:
+    {name: [(args, kwargs, output, (start, end) CUDA events)]}."""
+    import torch
+    from nbody_tpu_torch.ops import group_force as gf
+
+    calls = {"group_force": [], "quad_force": []}
+    orig = {k: getattr(gf, k) for k in calls}
+
+    def spy(name):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = orig[name](*a, **kw)
+            ev[1].record()
+            calls[name].append((a, kw, res, ev))
+            return res
+        return call
+
+    try:
+        for k in calls:
+            setattr(gf, k, spy(k))
+        run()
+    finally:
+        for k, fn in orig.items():
+            setattr(gf, k, fn)
+    torch.cuda.synchronize()
+    return calls
+
+
+def vis_phase():
+    """Phase 20, the visualizer on the card, through the HTTP surface the
+    browser uses.  (a) Boot ``VisServer`` in-process on the 1,048,575 +
+    star disc on ``bh`` (dt 3e-2, eps 0.02, theta^2 1, f32, 100000 points,
+    port 0).  (b) Paused: /api/meta's n_alive and point_stride,
+    /api/positions under 1.5 MB and bitwise the state's decimated rows,
+    / serves the page.  (c) Unpaused: at least 12 steps within a time
+    limit, then /api/positions and /api/boxes timed while it steps.  (d)
+    The boxes are 7-f32 records, at most 20000, min < max, depth fraction
+    in [0, 1]; ``aux()``'s walk counters finite, nothing dropped.  (e)
+    Paused, 3 steps forward and 3 back through /api/control: elapsed back
+    within 1e-6 relative.  One /api/boxes poll with K3 and K4 spied on in
+    the handler thread: their device times inside one ``aux()``, their
+    outputs bitwise the step's own force call's on the same state (main
+    thread), and a few groups against their twins.  (f) ``stop()`` leaves
+    no stepping thread; K3 and K4 were launched every step.  (g)
+    ``Simulation.compile(10)`` on a fresh 1M run leaves the state and the
+    reset target bitwise unchanged; the first timed step after it within
+    2x the median of the next 5.  (h) ``aux()`` on the 2^20 Plummer sphere's
+    deep stack renders more than 8 levels.  (i) ``flops_of`` of one step
+    on the 65536 ``brute-pallas`` run and on the 1M ``bh`` run: the kernel
+    part equals ``bound``'s pair count for K1, and for K3 + K4, on the
+    shapes the step gave them.  Returns the launches and readings for the
+    kernels line."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from nbody_tpu_torch import Simulation
+    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.scenes import plummer_sphere, self_gravitating_disc
+    from nbody_tpu_torch.utils.profiling import flops_of
+    from nbody_tpu_torch.vis.server import VisServer
+
+    def bh_sim(n):
+        return Simulation(*self_gravitating_disc(n, seed=0), engine="bh",
+                          device="cuda", dt=3e-2, g_soft=EPS, theta2=1.0)
+
+    out = {}
+    t_boot = time.perf_counter()
+    sim = bh_sim(VIS_N)
+    gf.reset_launch_counts()
+    srv = VisServer(sim, port=0, max_points=VIS_MAX_POINTS)
+    httpd = srv.serve(block=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        t0 = time.perf_counter()
+        data = urllib.request.urlopen(base + path, timeout=300).read()
+        return data, (time.perf_counter() - t0) * 1e3
+
+    def post(body):
+        req = urllib.request.Request(base + "/api/control",
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        return json.loads(urllib.request.urlopen(req, timeout=300).read())
+
+    def wait_steps(n, what):
+        deadline = time.perf_counter() + VIS_WAIT_S
+        while srv.loop.steps_done < n:
+            require(srv.loop.is_alive() and time.perf_counter() < deadline,
+                    f"vis {what}: {srv.loop.steps_done} of {n} steps in "
+                    f"{VIS_WAIT_S:.0f} s (loop error {srv.loop.error!r})")
+            time.sleep(0.01)
+
+    try:
+        # (a, b) boot, paused checks
+        meta = json.loads(get("/api/meta")[0])
+        boot_s = time.perf_counter() - t_boot
+        stride = -(-sim.state.capacity // VIS_MAX_POINTS)
+        require(meta["n_alive"] == VIS_N + 1
+                and meta["point_stride"] == stride,
+                f"vis /api/meta at boot: {meta}")
+        st = sim.state
+        want = st.pos[::stride][st.alive[::stride]].cpu().numpy().tobytes()
+        paused = [get("/api/positions") for _ in range(5)]
+        blob = paused[-1][0]
+        require(len(blob) < 1.5e6 and all(b == want for b, _ in paused),
+                f"vis /api/positions: {len(blob)} bytes, bitwise the "
+                f"decimated state: {blob == want}")
+        html = get("/")[0]
+        require(html.startswith(b"<!DOCTYPE html>")
+                and b"/api/positions" in html, "vis / does not serve the page")
+        # (c) stepping
+        require(post({"cmd": "pause"})["paused"] is False, "vis unpause")
+        wait_steps(VIS_MIN_STEPS, "stepping")
+        # the loop's step time (an EMA) with no payload polled meanwhile,
+        # then after the polls, which share the card and the interpreter
+        quiet = json.loads(get("/api/meta")[0])
+        stepping = [get("/api/positions")[1] for _ in range(5)]
+        boxes = [get("/api/boxes") for _ in range(3)]
+        meta = json.loads(get("/api/meta")[0])
+        # (d) the boxes
+        rec = np.frombuffer(boxes[-1][0], np.float32)
+        require(rec.size > 0 and rec.size % 7 == 0,
+                f"vis /api/boxes: {rec.size} floats")
+        rec = rec.reshape(-1, 7)
+        require(rec.shape[0] <= srv.max_boxes
+                and bool(np.all(rec[:, 0:3] < rec[:, 3:6]))
+                and 0.0 <= rec[:, 6].min() and rec[:, 6].max() <= 1.0,
+                f"vis boxes: {rec.shape[0]} records, malformed")
+        # (e) rewind, paused
+        require(post({"cmd": "pause"})["paused"] is True, "vis pause")
+        with srv.loop.lock:  # the frame in flight ends first
+            e0, n0 = sim.elapsed, srv.loop.steps_done
+        post({"cmd": "step", "k": 3})
+        wait_steps(n0 + 3, "3 steps forward")
+        e3 = sim.elapsed
+        post({"cmd": "step", "k": -3})
+        wait_steps(n0 + 6, "3 steps back")
+        with srv.loop.lock:
+            e_back = sim.elapsed
+        require(e3 > e0 and abs(e_back - e0) <= 1e-6 * abs(e0),
+                f"vis rewind: elapsed {e0!r} -> {e3!r} -> {e_back!r}")
+        # one poll's aux() from the handler thread, K3 and K4 spied on
+        t0 = time.perf_counter()
+        aux_calls = spy_kernels(lambda: out.update(poll=get("/api/boxes")))
+        aux_poll_ms = (time.perf_counter() - t0) * 1e3
+        aux = sim.aux()
+    finally:
+        srv.stop()
+    require(not srv.loop.is_alive(), "vis: a SimLoop thread outlived stop()")
+    require(srv.loop.error is None, f"vis loop error {srv.loop.error!r}")
+    launches = gf.launch_counts()
+    steps = srv.loop.steps_done
+    require(launches["group_force"] + launches["group_force_masked"] >= steps
+            and launches["quad_force"] >= steps,
+            f"vis: {steps} steps launched {launches}")
+    walk = {k: v for k, v in aux.items() if k != "tree_boxes"}
+    require(all(math.isfinite(v) for v in walk.values())
+            and walk["accept_dropped"] == 0, f"vis aux counters {walk}")
+    out["launches"] = launches
+
+    # the aux() kernels against the step's own force call on the same state
+    # and against their twins
+    st = sim.state
+    step_calls = spy_kernels(lambda: sim.engine.force(
+        st.pos, st.effective_mass(), sim.settings))
+    parts, k_ms = [], {}
+    for name, check in (("group_force", k3_check), ("quad_force", k4_check)):
+        require(len(aux_calls[name]) == len(step_calls[name]) >= 1,
+                f"vis {name}: {len(aux_calls[name])} calls in aux(), "
+                f"{len(step_calls[name])} in a step")
+        for (a, kw, res, ev), (_, _, res_s, _) in zip(aux_calls[name],
+                                                      step_calls[name]):
+            require(torch.equal(res, res_s), f"vis {name}: aux() and the "
+                    "step's force call differ on the same state")
+            # three spread groups and the one with the most massive rows
+            G_ = a[0].shape[0]
+            busiest = int((a[1][..., 3] != 0).sum(dim=1).argmax())
+            e, abs_ = check(*pick(a, kw, sorted({0, G_ // 2, G_ - 1,
+                                                 busiest})),
+                            f"vis aux {name}")
+            out[f"{name}_abs"] = max(out.get(f"{name}_abs", 0.0), abs_)
+            k_ms[name] = k_ms.get(name, 0.0) + ev[0].elapsed_time(ev[1])
+            parts.append(f"{name} {tuple(a[0].shape)} x {tuple(a[1].shape)}"
+                         f" vs plain {e:.2e}")
+    n_rec = len(out["poll"][0]) // 28
+    del srv, sim, st, aux_calls, step_calls
+
+    # (g) compile at 1M, (i) flops_of of one 1M bh step
+    sim = bh_sim(VIS_N)
+    snap = {k: getattr(sim.state, k).clone()
+            for k in ("pos", "vel", "acc", "time")}
+    initial = sim._initial
+    t0 = time.perf_counter()
+    require(sim.compile(10) is sim, "compile did not return the Simulation")
+    compile_s = time.perf_counter() - t0
+    require(sim._initial is initial
+            and all(torch.equal(getattr(sim.state, k), v)
+                    and torch.equal(getattr(initial, k), v)
+                    for k, v in snap.items()),
+            "compile changed the state or the reset target")
+    step_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        sim.step()
+        sim.block_until_ready()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(step_ms[1:]))
+    require(step_ms[0] <= 2 * med, f"first step after compile "
+            f"{step_ms[0]:.1f} ms, median of the next 5 {med:.1f} ms")
+    fl = {}
+    calls = record_calls(lambda: fl.update(bh=flops_of(sim.run, 1)))
+    want_bh = (sum(k3_pairs(a[0], a[1], kw["tile"], kw["mask"])
+                   for a, kw in calls["group_force"]) * pair_ops("pair")
+               + sum(k4_pairs(a[0], a[1]) for a, kw in calls["quad_force"])
+               * pair_ops("quad"))
+    kf = fl["bh"]["kernel_flops"]
+    got_bh = sum(kf.get(k, 0) for k in ("group_force", "group_force_masked",
+                                        "quad_force"))
+    require(got_bh == want_bh, f"flops_of K3 + K4 {got_bh} vs bound's "
+            f"{want_bh} ({kf})")
+    del sim, calls
+
+    # (i) flops_of of one step on the 65536 brute-pallas run
+    sim = Simulation(*self_gravitating_disc(FLOPS_BRUTE_N, seed=0),
+                     engine="brute-pallas", device="cuda", dt=3e-2,
+                     g_soft=EPS)
+    calls = record_calls(lambda: fl.update(k1=flops_of(sim.run, 1)),
+                         names=("pairwise_acc_sym",), module=pw)
+    want_k1 = sum(k1_pairs(a[0], a[1])
+                  for a, _ in calls["pairwise_acc_sym"]) * pair_ops("sym")
+    got_k1 = fl["k1"]["kernel_flops"]
+    require(len(calls["pairwise_acc_sym"]) == 1
+            and got_k1 == {"pairwise_acc_sym": want_k1},
+            f"flops_of K1 {got_k1} vs bound's {want_k1}")
+    del sim, calls
+
+    # (h) the refined levels' boxes on the deep stack (phase 19's sphere)
+    pos, vel, mass = plummer_sphere(ADAPTIVE_N, seed=0)
+    keep = np.all(np.abs(pos) <= 20.0, axis=1)
+    sim = Simulation(pos[keep], vel[keep], mass[keep], engine="auto",
+                     capacity=ADAPTIVE_N, bounds_width=40.0, device="cuda",
+                     dt=3e-2, g_soft=EPS, theta2=1.0)
+    t0 = time.perf_counter()
+    deep = sim.aux()
+    deep_ms = (time.perf_counter() - t0) * 1e3
+    levels = [n for *_, n in deep["tree_boxes"]]
+    require(sum(n > 0 for n in levels) > 8 and deep["accept_dropped"] == 0,
+            f"deep-stack boxes: per-level counts {levels}, {deep}")
+    del sim
+
+    print(f"[20 visualizer] {nvidia_smi()} | the {VIS_N + 1}-row bh disc: "
+          f"boot {boot_s:.2f} s; {steps} steps seen; step_time_ms "
+          f"{quiet['step_time_ms']} unpolled ({quiet['steps']} steps, fps "
+          f"{quiet['fps']}), {meta['step_time_ms']} after the polls below "
+          f"({meta['steps']} steps, fps {meta['fps']}); /api/positions "
+          f"{len(blob) / 1e6:.3f} MB, bitwise the decimated state, "
+          f"paused {np.median([t for _, t in paused]):.1f} ms, stepping "
+          f"{np.median(stepping):.1f} ms (median of 5); /api/boxes stepping "
+          f"{np.median([t for _, t in boxes]):.1f} ms (median of 3), "
+          f"paused {aux_poll_ms:.1f} ms, {n_rec} records; K3 "
+          f"{k_ms['group_force']:.3f} ms + K4 {k_ms['quad_force']:.3f} ms "
+          f"inside one aux(), bitwise the step's; " + ", ".join(parts)
+          + f"; aux counters {walk}; rewind +3/-3: elapsed {e0!r} -> "
+          f"{e_back!r}; launches {launches} | compile(10) at {VIS_N + 1} "
+          f"{compile_s:.2f} s, state and reset target unchanged, steps "
+          f"after it (ms) {[round(t, 1) for t in step_ms]} | deep-stack "
+          f"aux() {deep_ms:.0f} ms, boxes per level {levels} | flops_of "
+          f"one step: {FLOPS_BRUTE_N + 1} brute-pallas K1 "
+          f"{got_k1['pairwise_acc_sym']:.4e}"
+          f" = bound's, total {fl['k1']['flops']:.4e}, "
+          f"{fl['k1']['bytes_accessed']} B; {VIS_N + 1} bh K3 + K4 "
+          f"{got_bh:.4e} = "
+          f"bound's, total {fl['bh']['flops']:.4e}, "
+          f"{fl['bh']['bytes_accessed']} B", flush=True)
     return out
 
 
@@ -854,14 +1168,14 @@ def main() -> int:
     # once, K2 every (target, massive source) pair; K2 reads 12 bytes a
     # target and 16 a source, and writes 12 a target
     n1, nm = pos.shape[0], nnz(m)
-    k1_bound = bound(nm * (nm - 1) / 2 + nm * (n1 - nm), OPS["sym"], 28 * n1)
-    k2_bound = bound(pos2.shape[0] * nnz(m2), OPS["pair"],
+    k1_bound = bound(k1_pairs(pos, m), "sym", 28 * n1)
+    k2_bound = bound(pos2.shape[0] * nnz(m2), "pair",
                      28 * pos2.shape[0])
-    k2_full_bound = bound(n1 * nm, OPS["pair"], 28 * n1)
-    k2_30_bound = bound(p30.shape[0] * nnz(m30), OPS["pair"],
+    k2_full_bound = bound(n1 * nm, "pair", 28 * n1)
+    k2_30_bound = bound(p30.shape[0] * nnz(m30), "pair",
                         28 * p30.shape[0])
-    k2_or_bound = bound(1024 * nm, OPS["pair"], 24 * 1024 + 16 * n1)
-    k2_o20_bound = bound(4096 * nnz(m20), OPS["pair"],
+    k2_or_bound = bound(1024 * nm, "pair", 24 * 1024 + 16 * n1)
+    k2_o20_bound = bound(4096 * nnz(m20), "pair",
                          24 * 4096 + 16 * p20.shape[0])
     steps = {}
     for engine in ("brute", "brute-pallas", "brute-pallas", "brute"):
@@ -1430,7 +1744,7 @@ def main() -> int:
         Gs, B = msrc.shape
         ng = (msrc != 0).sum(dim=1).double()
         pairs = float((ng * (ng - 1) / 2 + ng * (B - ng)).sum())
-        return bound(pairs, OPS["sym"], Gs * B * 28)
+        return bound(pairs, "sym", Gs * B * 28)
 
     a, _ = sym_1m["group_self_force"][0]
     k5_ms, k5_plain = pair(lambda: gf.group_self_force(*a),
@@ -1450,7 +1764,7 @@ def main() -> int:
     k6_ms, k6_plain = pair(lambda: pw.pairwise_acc_mxu(ps, ms_, G, EPS),
                            lambda: pw.pairwise_acc_mxu_plain(ps, ms_, G, EPS),
                            20, 1)
-    k6_bnd = bound(ps.shape[0] * nnz(ms_), OPS["mxu"], 28 * ps.shape[0])
+    k6_bnd = bound(ps.shape[0] * nnz(ms_), "mxu", 28 * ps.shape[0])
     rates = {}
     for label, n, steps in (("1M", 1048575, 10), ("100k", 100000, 100)):
         for opts in ({}, sym_over, sym_over, {}):
@@ -1808,10 +2122,14 @@ def main() -> int:
 
     # -- 19. the adaptive path --------------------------------------------
     adaptive = adaptive_phase()
+
+    # -- 20. the visualizer -------------------------------------------------
+    vis = vis_phase()
     smi = nvidia_smi()
 
-    # the main paths' launches: phases 9 and 19 (each run read alone)
-    bh_runs = [*bh_launches.values(), *adaptive["launches"].values()]
+    # the main paths' launches: phases 9, 19 and 20 (each run read alone)
+    bh_runs = [*bh_launches.values(), *adaptive["launches"].values(),
+               vis["launches"]]
     k4_launches = sum(c["quad_force"] for c in bh_runs)
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
         # no single PyTorch call computes a softened-gravity sum
@@ -1838,14 +2156,15 @@ def main() -> int:
         entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force"] for c in bh_runs),
-              max(k3_abs, adaptive["k3_abs"]), k3_ms, k3_plain, k3_bnd),
+              max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"]), k3_ms,
+              k3_plain, k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force_masked"] for c in bh_runs),
               max(k3m_abs, adaptive["k3_abs"]), k3m_ms, k3m_plain, k3m_bnd),
         entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:362", k4_launches,
-              max(k4_abs, adaptive["k4_abs"]), k4_ms,
+              max(k4_abs, adaptive["k4_abs"], vis["quad_force_abs"]), k4_ms,
               k4_plain, k4_bnd),
         entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
               "nbody_tpu/ops/group_force.py:250",

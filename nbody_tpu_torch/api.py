@@ -5,9 +5,10 @@
     init() / reset()                  snapshot / restore the initial state
     step() / step_by(dt)              one step (negative dt = rewind)
     run(n)                            n steps enqueued without host sync
+    compile(n)                        run one step (kernels built) and discard it
     update_forces()                   recompute accelerations in place
     add_point / remove_point / get_points
-    n_alive, elapsed, settings / set_settings(**kw), energy()
+    n_alive, elapsed, settings / set_settings(**kw), energy(), aux()
     save(path) / load(path)           pickle, same payload as the JAX package
 
 ``device="cuda"`` runs on the card or raises; nothing silently runs on the
@@ -104,6 +105,19 @@ def _route_engine_options(engine, auto: bool, engine_options, pos,
               + f" stack (max_level={ov['max_level']}, refine_levels="
               f"{ov['refine_levels']}) from the scene's leaf occupancy")
     return options
+
+
+def _check_format(format: str):
+    """The checkpoint formats of the JAX package's ``save``/``load``: the
+    pickle is ported; orbax raises."""
+    if format == "orbax":
+        raise NotImplementedError(
+            "format='orbax' is not yet ported to nbody_tpu_torch; "
+            "torch.distributed.checkpoint takes its place with the sharded "
+            "path (ROADMAP.md, queue 1, item 17)")
+    if format != "pickle":
+        raise ValueError(
+            f"format must be 'pickle' or 'orbax', got {format!r}")
 
 
 class Simulation:
@@ -210,6 +224,25 @@ class Simulation:
             self._state = self._run(self._state, self._params, n_steps, dt)
         return self._state
 
+    def compile(self, n_steps: int, dt: Optional[float] = None):
+        """Take the one-time costs out of a later timed window, as the JAX
+        package's ``compile`` (an ahead-of-time lowering of the fused
+        ``run``) does.  Eager torch has no program to lower, so here it
+        executes one step of the configured stepper (plain or compensated)
+        on the current state, which builds and loads the kernels its engine
+        launches (at their first use) and sizes the allocator's caches,
+        then waits for it and throws the result away: the state, the low
+        words, the clock and the ``reset`` target are left as they were
+        (the stepper makes new tensors and writes none in place).
+        ``n_steps`` is accepted for the JAX signature; a step costs the
+        same in every run.  Returns ``self``."""
+        if self.compensated:
+            self._step(self._state, self._lo, self._params, dt)
+        else:
+            self._step(self._state, self._params, dt)
+        self.block_until_ready()
+        return self
+
     def update_forces(self):
         """Recompute accelerations in place without integrating."""
         st = self._state
@@ -276,6 +309,14 @@ class Simulation:
         """The method 'auto' resolves to at this capacity."""
         return resolve_energy_method(self._state.capacity, method)
 
+    def aux(self) -> dict:
+        """Engine-specific inspection data: the bh engines' octree node
+        boxes and walk counters; ``{}`` for an engine without ``aux``."""
+        if self.engine.aux is None:
+            return {}
+        st = self._state
+        return self.engine.aux(st.pos, st.effective_mass(), self._params)
+
     # -- checkpointing: the JAX package's pickle payload, both ways --------
 
     def _payload(self) -> dict:
@@ -291,17 +332,20 @@ class Simulation:
                          "vel_lo": self._lo[1].cpu().numpy()}
         return out
 
-    def save(self, path: str):
+    def save(self, path: str, format: str = "pickle"):
         """Write a pickle that this package's and the JAX package's
-        ``Simulation.load`` both read."""
+        ``Simulation.load`` both read.  ``format='orbax'`` (the JAX
+        package's sharded checkpoints) is not ported."""
+        _check_format(format)
         with open(path, "wb") as f:
             pickle.dump(self._payload(), f)
 
-    def load(self, path: str):
+    def load(self, path: str, format: str = "pickle"):
         """Read a pickle written by ``save`` of either package.  The low
         words of a compensated checkpoint are restored in a compensated
         ``Simulation`` (zeros when the file has none) and ignored in a
         plain one.  The restored point becomes the ``reset`` target."""
+        _check_format(format)
         with open(path, "rb") as f:
             payload = pickle.load(f)
         self._state = ParticleState.from_numpy(payload["state"], self.device)

@@ -14,7 +14,7 @@ names raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 ENGINES: dict = {}
 
@@ -28,6 +28,10 @@ class Engine:
     name: str
     #: force(pos[N,D], mass_eff[N], params) -> acc[N,D]
     force: Callable
+    #: optional: aux(pos, mass_eff, params) -> dict for inspection (the
+    #: octree node boxes and walk counters of the bh engines, which the
+    #: visualizer draws); None for the brute engines
+    aux: Optional[Callable] = None
     description: str = ""
     #: carries a cache between steps (``bh-lazy`` in the JAX package); the
     #: stateful stepper is not ported yet (ROADMAP.md, queue 1, item 16)

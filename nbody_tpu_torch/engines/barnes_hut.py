@@ -28,8 +28,10 @@ from nbody_tpu_torch.ops.traversal import (
     ROADMAP_BH_OPTIONS,
     ROADMAP_OPT_IN,
     BHConfig,
+    _refine_args,
     bh_accel,
 )
+from nbody_tpu_torch.ops.tree import build_octree, tree_boxes
 
 
 def make_bh_engine(name: str = "bh", **options) -> Engine:
@@ -68,7 +70,24 @@ def make_bh_engine(name: str = "bh", **options) -> Engine:
                                params.g, params.g_soft, fit(pos))
         return acc
 
-    return Engine(name=name, force=force,
+    def aux(pos, mass, params):
+        """The octree's node boxes (``tree_boxes``) and the walk's counters
+        as Python ints, the JAX engine's keys.  The boxes come from a tree
+        built in the world frame, as the JAX engine builds it; the counters
+        from a whole ``bh_accel`` (grid frame), whose kernels launch as in
+        a step."""
+        c = fit(pos)
+        tree = build_octree(pos, mass, params.bounds, c.max_level,
+                            **_refine_args(c))
+        _acc, stats = bh_accel(pos, mass, params.bounds, params.theta2,
+                               params.g, params.g_soft, c)
+        keys = ["accept_dropped", "frontier_fallback", "near_fallback",
+                "fb_spill"] + (["refine_build_dropped"] if c.refine_levels
+                               else [])
+        return {"tree_boxes": tree_boxes(tree, params.bounds),
+                **{k: int(stats[k]) for k in keys}}
+
+    return Engine(name=name, force=force, aux=aux,
                   description=f"Barnes-Hut linear octree, {cfg}")
 
 

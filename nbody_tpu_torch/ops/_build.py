@@ -8,6 +8,12 @@ import, into ``build/nbody_tpu_torch/`` at the root of the checkout (listed
 in ``.gitignore``), under a name keyed by a hash of the sources and flags,
 so a changed source is rebuilt and an unchanged one is reused.
 
+Building and loading are safe for concurrent callers: one module lock
+guards the build and the first load, so two threads that reach
+``load_library`` together (the visualizer's stepping thread and an HTTP
+poll) run one nvcc set between them, and the temporary files carry the
+thread id beside the pid.
+
 Nothing here falls back: no CUDA device, no ``nvcc`` or a failed compile
 raises.
 """
@@ -15,11 +21,11 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -30,6 +36,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 _BUILD_TIMEOUT_S = 900
+# guards build() and the first load_library(); re-entrant because
+# load_library builds while it holds it
+_LOCK = threading.RLock()
+_LIB = None
 
 
 def _sources() -> list:
@@ -63,13 +73,19 @@ def build() -> Path:
     """Compile the sources unless a library for them exists; return its
     path.  One nvcc per source, all started together, then one link.
     nvcc's output (with the ``-Xptxas -v`` register and shared-memory
-    report) goes to ``build.log`` beside the library."""
+    report) goes to ``build.log`` beside the library.  Callers in other
+    threads wait for a build in progress and then reuse its library."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{lib.stem}.{os.getpid()}"
+    tag = f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
     sources = [p for p in _sources() if p.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
@@ -111,10 +127,22 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernels, with every entry point's
-    ``argtypes`` and ``restype`` declared."""
+    ``argtypes`` and ``restype`` declared.  The first call loads them once
+    for the process, whichever thread makes it; later calls return that
+    library without taking the lock."""
+    global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _load()
+        return _LIB
+
+
+def _load() -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: the kernels of nbody_tpu_torch need an "

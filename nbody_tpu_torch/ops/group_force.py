@@ -35,7 +35,9 @@ A wrapper given CPU tensors runs its plain twin; given CUDA tensors it
 launches its kernel or raises (float32, contiguous).  There is no fallback.
 Each wrapper adds one to its entry of ``LAUNCHES`` where it launches its
 kernel; the masked and unmasked K3 launches are counted apart
-(``group_force_masked`` / ``group_force``).
+(``group_force_masked`` / ``group_force``).  Each reports its work to an
+open ``flops_of`` count (``ops/work.py``), whether it launches its kernel
+or runs its twin.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import math
 
 import torch
 
-from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import _build, work
 from nbody_tpu_torch.ops.pairwise import (_eps2, _on_cpu, _stream,
                                          sym_partial_shape)
 
@@ -202,8 +204,12 @@ def group_force(tgt8, slab, g, g_soft, *, tile, mask=None):
         if (mask.shape[0] != G or B % bt or st != S // tile):
             raise ValueError(f"group_force: mask {tuple(mask.shape)} does not "
                              f"fit B = {B}, S = {S}, tile = {tile}")
-    if _on_cpu(tgt8, slab):
-        return group_force_plain(tgt8, slab, g, g_soft, tile=tile, mask=mask)
+    cpu = _on_cpu(tgt8, slab)
+    name = "group_force" if mask is None else "group_force_masked"
+    work.record(name, "pair", work.group_work, tgt8, slab, tile, mask)
+    if cpu:
+        return work.plain(group_force_plain, tgt8, slab, g, g_soft,
+                          tile=tile, mask=mask)
     _check_aligned("group_force", tgt8, slab)
     out = torch.empty((G, B, 3), dtype=torch.float32, device=tgt8.device)
     if G == 0 or B == 0:
@@ -226,7 +232,7 @@ def group_force(tgt8, slab, g, g_soft, *, tile, mask=None):
             _eps2(g_soft, torch.float32), float(g), out.data_ptr(),
             _stream(tgt8.device))
     _build.check(lib, rc, "group_force")
-    LAUNCHES["group_force" if mask is None else "group_force_masked"] += 1
+    _launched(name)
     return out
 
 
@@ -239,8 +245,10 @@ def quad_force(tgt8, qslab, g, g_soft, *, tile):
     A = qslab.shape[1]
     if A % tile:
         raise ValueError(f"quad_force: tile {tile} does not divide A = {A}")
-    if _on_cpu(tgt8, qslab):
-        return quad_force_plain(tgt8, qslab, g, g_soft, tile=tile)
+    cpu = _on_cpu(tgt8, qslab)
+    work.record("quad_force", "quad", work.quad_work, tgt8, qslab)
+    if cpu:
+        return work.plain(quad_force_plain, tgt8, qslab, g, g_soft, tile=tile)
     _check_aligned("quad_force", tgt8, qslab)
     out = torch.empty((G, B, 3), dtype=torch.float32, device=tgt8.device)
     if G == 0 or B == 0:
@@ -252,7 +260,7 @@ def quad_force(tgt8, qslab, g, g_soft, *, tile):
             _eps2(g_soft, torch.float32), float(g), out.data_ptr(),
             _stream(tgt8.device))
     _build.check(lib, rc, "quad_force")
-    LAUNCHES["quad_force"] += 1
+    _launched("quad_force")
     return out
 
 
@@ -282,8 +290,10 @@ def group_self_force(tgt8, msrc, g, g_soft):
     if tuple(msrc.shape) != tuple(tgt8.shape[:2]):
         raise ValueError(f"group_self_force: msrc must be "
                          f"{tuple(tgt8.shape[:2])}, got {tuple(msrc.shape)}")
-    if _on_cpu(tgt8, msrc):
-        return group_self_force_plain(tgt8, msrc, g, g_soft)
+    cpu = _on_cpu(tgt8, msrc)
+    work.record("group_self_force", "sym", work.self_work, tgt8, msrc)
+    if cpu:
+        return work.plain(group_self_force_plain, tgt8, msrc, g, g_soft)
     G, B, _ = tgt8.shape
     out = torch.empty((G, B, 3), dtype=torch.float32, device=tgt8.device)
     if G == 0 or B == 0:
@@ -297,14 +307,21 @@ def group_self_force(tgt8, msrc, g, g_soft):
             _eps2(g_soft, torch.float32), float(g), partial.data_ptr(),
             partial.numel(), out.data_ptr(), _stream(tgt8.device))
     _build.check(lib, rc, "group_self_force")
-    LAUNCHES["group_self_force"] += 1
+    _launched("group_self_force")
     return out
 
 
+def _launched(name):
+    with work.LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with work.LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with work.LOCK:
+        return dict(LAUNCHES)

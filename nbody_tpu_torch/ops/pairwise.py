@@ -24,7 +24,9 @@ exactly 0 (d = 0, and r2 == 0 is replaced by 1 before the rsqrt).
 A wrapper given CPU tensors runs its plain twin (``*_plain``); given CUDA
 tensors it launches its kernel or raises.  There is no fallback from one to
 the other.  The kernels take float32 only.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` (``reset_launch_counts`` zeroes them).
+launches in its entry of ``LAUNCHES`` (``reset_launch_counts`` zeroes them),
+and reports its work to an open ``flops_of`` count (``ops/work.py``)
+whichever of the two it runs.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 
 from nbody_tpu_torch.core.state import SimParams
 from nbody_tpu_torch.engines import Engine, register
-from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import _build, work
 
 # Newton-3 kernel range of the brute-pallas engine, kept from the JAX package
 # (nbody_tpu/ops/pairwise.py:175).  The bounds were tuned on a TPU: below
@@ -215,8 +217,12 @@ def pairwise_acc_targets(pos_t, pos, mass, g, g_soft):
     chunks' partial sums of a batch of targets [splits, min(K, 65536), 3]
     (``targets_launch``)."""
     _check_3d(pos_t, pos)
-    if _on_cpu(pos_t, pos, mass):
-        return pairwise_acc_targets_plain(pos_t, pos, mass, g, g_soft)
+    cpu = _on_cpu(pos_t, pos, mass)
+    work.record("pairwise_acc_targets", "pair", work.targets_work, pos_t,
+                pos, mass)
+    if cpu:
+        return work.plain(pairwise_acc_targets_plain, pos_t, pos, mass, g,
+                          g_soft)
     k, n = pos_t.shape[0], pos.shape[0]
     out = torch.empty((k, 3), dtype=torch.float32, device=pos.device)
     if k == 0 or n == 0:
@@ -237,7 +243,7 @@ def pairwise_acc_targets(pos_t, pos, mass, g, g_soft):
             0 if partial is None else partial.numel(), out.data_ptr(),
             _stream(pos.device))
     _build.check(lib, rc, "pairwise_acc_targets")
-    pairwise_acc_targets.launches += 1
+    _launched("pairwise_acc_targets")
     return out
 
 
@@ -260,8 +266,10 @@ def pairwise_acc_sym(pos, mass, g, g_soft):
     ``sym_partial_shape(N, nbody_sym_tile())`` float32 buffer of
     per-tile-pair partial sums ([N/256, N, 3]: 0.2 GB at N = 65536)."""
     _check_3d(pos)
-    if _on_cpu(pos, mass):
-        return pairwise_acc_sym_plain(pos, mass, g, g_soft)
+    cpu = _on_cpu(pos, mass)
+    work.record("pairwise_acc_sym", "sym", work.sym_work, pos, mass)
+    if cpu:
+        return work.plain(pairwise_acc_sym_plain, pos, mass, g, g_soft)
     n = pos.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
     if n == 0:
@@ -275,7 +283,7 @@ def pairwise_acc_sym(pos, mass, g, g_soft):
             float(g), partial.data_ptr(), partial.numel(), out.data_ptr(),
             _stream(pos.device))
     _build.check(lib, rc, "pairwise_acc_sym")
-    pairwise_acc_sym.launches += 1
+    _launched("pairwise_acc_sym")
     return out
 
 
@@ -324,9 +332,11 @@ def pairwise_acc_mxu(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
         raise ValueError(f"pairwise_acc_mxu: mass must be ({n},), got "
                          f"{tuple(mass.shape)}")
     ti, tj = mxu_tiles(n, tile_i, tile_j)
-    if _on_cpu(pos, mass):
-        return pairwise_acc_mxu_plain(pos, mass, g, g_soft, tile_i=ti,
-                                      tile_j=tj)
+    cpu = _on_cpu(pos, mass)
+    work.record("pairwise_acc_mxu", "mxu", work.mxu_work, pos, mass)
+    if cpu:
+        return work.plain(pairwise_acc_mxu_plain, pos, mass, g, g_soft,
+                          tile_i=ti, tile_j=tj)
     if pos.data_ptr() % 16 or mass.data_ptr() % 16:
         raise ValueError("pairwise_acc_mxu: the CUDA kernel needs 16-byte "
                          "aligned pos and mass")
@@ -342,23 +352,29 @@ def pairwise_acc_mxu(pos, mass, g, g_soft, *, tile_i=512, tile_j=1024):
             None if partial is None else partial.data_ptr(), out.data_ptr(),
             _stream(pos.device))
     _build.check(lib, rc, "pairwise_acc_mxu")
-    pairwise_acc_mxu.launches += 1
+    _launched("pairwise_acc_mxu")
     return out
 
 
-pairwise_acc_targets.launches = 0
-pairwise_acc_sym.launches = 0
-pairwise_acc_mxu.launches = 0
-WRAPPERS = (pairwise_acc_sym, pairwise_acc_targets, pairwise_acc_mxu)
+#: kernel launches per wrapper (reset_launch_counts zeroes them)
+LAUNCHES = {"pairwise_acc_sym": 0, "pairwise_acc_targets": 0,
+            "pairwise_acc_mxu": 0}
+
+
+def _launched(name):
+    with work.LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts():
-    for fn in WRAPPERS:
-        fn.launches = 0
+    with work.LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    with work.LOCK:
+        return dict(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------

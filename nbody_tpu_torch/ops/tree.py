@@ -434,3 +434,57 @@ def leaf_ranges(tree: LinearOctree, cell_ids):
     start = torch.searchsorted(tree.code_s, cell_ids, side="left")
     end = torch.searchsorted(tree.code_s, cell_ids + 1, side="left")
     return start, end
+
+
+def _boxes(ids, gb, level: int):
+    """(min [K, 3], max [K, 3], K) numpy boxes of level-``level`` cell ids
+    on the grid ``gb``, as the JAX package computes them: centers in the
+    grid's dtype, then the half width as a host float."""
+    c = morton.cell_centers_from_codes(ids, gb, level).cpu().numpy()
+    half = float(gb.width) / (1 << level) / 2.0
+    return c - half, c + half, int(ids.shape[0])
+
+
+def tree_boxes(tree: LinearOctree, bounds, max_nodes_per_level: int = 4096):
+    """Occupied-node AABBs per level for inspection and the visualizer (the
+    counterpart of ``nbody_tpu/ops/tree.py:873-928``): a list over levels of
+    (min [K, 3], max [K, 3], K) numpy arrays, the first
+    ``max_nodes_per_level`` occupied cells of each level in id order (the
+    clamp comes before the count).
+
+    The occupied ids are found on the tree's device, so only the K kept
+    rows cross to the host, not the 8^l masses.  A refined build
+    (refine_levels > 0) adds one entry per refined level: each refined
+    cell's Morton code at depth L + r is rebuilt by inverting the slot maps
+    (``refine_slot_leaf`` for the first refined level, ``refine_child_slot``
+    below)."""
+    gb = grid_bounds(bounds, tree.max_level)
+    out = []
+    for l, m in enumerate(tree.level_mass):
+        occ = torch.nonzero(m > 0).squeeze(1)[:max_nodes_per_level]
+        out.append(_boxes(occ, gb, l))
+    if tree.refine_tables is None:
+        return out
+
+    L = tree.max_level
+    slot_leaf = tree.refine_slot_leaf.long()
+    dev = slot_leaf.device
+    cap = tree.refine_tables[0].shape[0] // BRANCH
+    # parent slot -> parent cell code (-1: an empty slot), level by level
+    parent_code = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    flagged = torch.nonzero(slot_leaf >= 0).squeeze(1)
+    parent_code[slot_leaf[flagged]] = flagged
+    for r, table in enumerate(tree.refine_tables, start=1):
+        j = torch.arange(table.shape[0], device=dev)
+        parent = parent_code[j // BRANCH]
+        codes = parent * BRANCH + j % BRANCH
+        ok = (table[:, 0] > 0) & (parent >= 0)
+        occ = torch.nonzero(ok).squeeze(1)[:max_nodes_per_level]
+        out.append(_boxes(codes[occ], gb, L + r))
+        if r <= len(tree.refine_child_slot):
+            child_slot = tree.refine_child_slot[r - 1].long()
+            rows = torch.nonzero((child_slot >= 0) & (codes >= 0)).squeeze(1)
+            parent_code = torch.full((cap,), -1, dtype=torch.int64,
+                                     device=dev)
+            parent_code[child_slot[rows]] = codes[rows]
+    return out

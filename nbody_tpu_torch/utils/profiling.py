@@ -9,7 +9,9 @@
                         (``torch.profiler.record_function``);
   * ``StepTimer``       host-side ring-buffer telemetry (steps/s, mean, p50
                         and p99 step latency);
-  * ``flops_of``        not ported (it is XLA's cost analysis);
+  * ``flops_of``        the work of one call: the kernels' pair counts and
+                        bytes from their launch shapes, plus the aten ops
+                        that ``FlopCounterMode`` counts around them;
   * logging through the stdlib logger "nbody_tpu".
 
 Nothing here falls back: a profiler that does not start raises.
@@ -87,9 +89,37 @@ class StepTimer:
 
 
 def flops_of(fn, *args, **kwargs) -> dict:
-    """The JAX package's ``flops_of`` is XLA's cost analysis of a compiled
-    program; torch's flop counter cannot see the hand-written kernels, so
-    it is not ported."""
-    raise NotImplementedError(
-        "flops_of (XLA cost analysis) is not yet ported to nbody_tpu_torch "
-        "(ROADMAP.md, queue 1, item 14)")
+    """The work of one call ``fn(*args, **kwargs)``, which runs once:
+    ``{"flops", "bytes_accessed"}`` (the JAX package's keys) and
+    ``"kernel_flops"``, the kernels' share by wrapper name.
+
+    Counted, in this thread only:
+      * each call of a kernel wrapper (``ops/pairwise.py``,
+        ``ops/group_force.py``): the pairs its inputs need times the FP32
+        operations a pair (``ops/work.py`` ``PAIR_OPS``: 18 one-directional,
+        25 Newton-3, 49 quadrupole, 19 norm trick), and its bytes, each
+        input read once and each output written once; the same whether it
+        launches its kernel or runs its plain twin on the CPU (the twin's
+        own aten ops are not counted again);
+      * ``torch.utils.flop_counter.FlopCounterMode``'s flops of the aten ops
+        around them: matrix products, convolutions and attention.
+    Not counted: elementwise work, reductions, sorts, gathers and scatters,
+    and any bytes but the kernels'.  The kernels launch through ctypes, so
+    ``FlopCounterMode`` alone would count none of them.  XLA's cost
+    analysis (the JAX package's ``flops_of``) counts elementwise work and
+    every buffer's bytes and lowers without running, so the two numbers are
+    not comparable.  The pair counts read the masses back, so on the card
+    the call runs with host syncs a plain call would not make."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nbody_tpu_torch.ops import work
+
+    aten = FlopCounterMode(display=False)
+    with aten, work.counting(aten) as count:
+        fn(*args, **kwargs)
+    kernel = sum(count.flops.values())
+    return {
+        "flops": kernel + aten.get_total_flops() - count.twin_aten,
+        "bytes_accessed": count.bytes,
+        "kernel_flops": dict(count.flops),
+    }

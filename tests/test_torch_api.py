@@ -206,3 +206,60 @@ def test_bh_engines_and_their_limits():
                       engine="bh", bounds_center=(0.0, 0.0), device="cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
         flat.run(1)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_compile_runs_one_step_and_keeps_the_state(compensated):
+    """compile executes one step of the configured stepper and discards it:
+    the state, the low words, the clock and the reset target are bitwise
+    what they were, and it returns the Simulation."""
+    sim = make(200, compensated=compensated)
+    sim.run(2)
+    before = {k: getattr(sim.state, k).clone()
+              for k in ("pos", "vel", "acc", "mass", "alive", "time")}
+    lo = None if sim._lo is None else [t.clone() for t in sim._lo]
+    elapsed = sim.elapsed
+    steps = []
+    step = sim._step
+    sim._step = lambda *a: steps.append(1) or step(*a)
+    assert sim.compile(10) is sim
+    assert sim.compile(10, dt=-1e-3) is sim
+    assert len(steps) == 2
+    for k, t in before.items():
+        assert torch.equal(getattr(sim.state, k), t), k
+    if compensated:
+        assert all(torch.equal(a, b) for a, b in zip(sim._lo, lo))
+    assert sim.elapsed == elapsed
+    sim.reset()
+    fresh = make(200, compensated=compensated)
+    for k in before:
+        assert torch.equal(getattr(sim.state, k), getattr(fresh.state, k)), k
+    if compensated:
+        assert all(torch.equal(a, b) for a, b in zip(sim._lo, fresh._lo))
+
+
+@pytest.mark.parametrize("fmt", ["pickle", "orbax", "npz"])
+def test_save_load_take_the_jax_format_argument(fmt, tmp_path):
+    """save/load take the JAX signature's ``format``: the pickle is
+    ported (and read by the JAX package), orbax raises naming its ROADMAP
+    item, anything else is refused."""
+    sim = make(100)
+    sim.run(2)
+    path = str(tmp_path / "ckpt")
+    if fmt == "pickle":
+        sim.save(path, format=fmt)
+        other = make(100).load(path, format=fmt)
+        assert torch.equal(other.state.pos, sim.state.pos)
+        assert other.elapsed == sim.elapsed
+        jsim = nbody_tpu.Simulation(*self_gravitating_disc(100, seed=0),
+                                    dtype=jnp.float32)
+        jsim.load(path, format=fmt)
+        np.testing.assert_array_equal(np.asarray(jsim.state.pos),
+                                      sim.state.pos.numpy())
+        return
+    err = NotImplementedError if fmt == "orbax" else ValueError
+    match = "item 17" if fmt == "orbax" else "'pickle' or 'orbax'"
+    with pytest.raises(err, match=match):
+        sim.save(path, format=fmt)
+    with pytest.raises(err, match=match):
+        sim.load(path, format=fmt)

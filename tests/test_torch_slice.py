@@ -143,7 +143,7 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Simulation(pos, vel, mass, engine="brute-pallas", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        _build.load_library.__wrapped__()
+        _build.load_library()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["-n", "10", "--steps", "1", "--device", "cuda"])
     # no nvcc: the build raises rather than skipping the kernels
