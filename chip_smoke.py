@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs twenty phases, each
+(one nvcc per source, all at once), then runs twenty-one phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -105,7 +105,16 @@ printing one line and stopping the script with a non-zero exit on failure:
      step's own force call and against their twins; ``Simulation.compile``
      at 1M; the deep stack's refined levels in ``aux()``; ``flops_of`` of
      one step equal to ``bound``'s pair counts (K1 at 65536, K3 + K4 at
-     1M).
+     1M);
+ 21. the single-chip Barnes-Hut variants (``reuse_phase``): walk reuse
+     (``--walk-every 4``) at 2^20 and on the 100k flagship through the CLI,
+     ``bh-lazy`` at 2^20, a 2D state (the 2D disc at 262144) on ``bh``,
+     and ``delta_onepass``, sliding windows, ``quad_leaf`` and ``fb_quad``
+     on one 2^20 force call each: K3 and K4 on every path and against
+     their twins on the new slabs (2D rows with z = 0, cached slabs with
+     stale ids in zero-mass rows), the bh envelope against the K2 oracle,
+     one host read a step on the stateful engines, steps/s beside plain
+     ``bh`` and a full and a cached step's kernel launches.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -782,6 +791,425 @@ def vis_phase():
           f"{got_bh:.4e} = "
           f"bound's, total {fl['bh']['flops']:.4e}, "
           f"{fl['bh']['bytes_accessed']} B", flush=True)
+    return out
+
+
+# phase 21: walk reuse, bh-lazy, 2D states and the BH options off the
+# default path, at the main path's widths
+REUSE_N = 1048575  # + the star: 2^20 rows
+REUSE_EVERY = 4
+REUSE_STEPS = 12
+LAZY_STEPS = 10
+FLAGSHIP_N = 100000  # + the star
+FLAGSHIP_STEPS = 100
+DISC2D_N = 262144
+DISC2D_STEPS = 10
+# a 2D config that drops nothing, held if the auto preset drops nodes on
+# the 2D disc (the walk budgets of the dense profile)
+DISC2D_FALLBACK = dict(accept_cap=4096, frontier_cap=4096)
+
+
+def busiest(slab) -> int:
+    """The group of a slab [G, S, 8 or 16] with the most massive rows."""
+    return int((slab[..., 3] != 0).sum(1).argmax())
+
+
+def launches_in(run):
+    """(kernel launches through the runtime API, kernels on the card) of
+    ``run()``, read once with torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    host = card = 0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchKernelExC"):
+            host += e.count
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            card += e.count
+    return host, card
+
+
+def spy_engine(fn_name, run):
+    """``run()`` with the engines' ``fn_name`` (``bh_accel_reuse`` or
+    ``bh_accel_lazy``) spied on: the stats dict of every call."""
+    from nbody_tpu_torch.engines import barnes_hut as ebh
+
+    seen = []
+    orig = getattr(ebh, fn_name)
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        seen.append(res[1])
+        return res
+
+    setattr(ebh, fn_name, spy)
+    try:
+        out = run()
+    finally:
+        setattr(ebh, fn_name, orig)
+    return out, seen
+
+
+def reuse_phase():
+    """Phase 21, the single-chip Barnes-Hut variants on the card.  (a) walk
+    reuse at 2^20 through the CLI (``--walk-every 4``, 12 steps,
+    ``--energy``): the full walks (3 unless the moved-fraction guard
+    fires), K3 and K4 every step, one counted host read a step, the drift
+    finite and below 5e-3; on the final state the engine's own cached call
+    within the bh envelope against the K2 oracle, and at the positions of
+    a full walk the cached call equal to it (1e-6, bitwise printed);
+    steps/s beside plain ``bh``.  (b) ``bh-lazy`` at 2^20, 10 steps: the
+    rebuilds, the final state's forces in the envelope, ``refresh_octree``
+    at unchanged positions equal to a fresh build (integer tables exactly,
+    masses and COMs to 1e-6); steps/s.  (c) walk reuse on the 100k
+    flagship (100 steps, exact energy): drift below 1e-3, the launches of
+    a full and of a cached step (torch.profiler), steps/s beside plain
+    ``bh``.  (d) a 2D state (the 2D disc at 262144) on ``bh`` through
+    ``Simulation``: 10 steps, K3 and K4 with z = 0 rows every step, no
+    walk drop, sampled forces against the K2 oracle, K3 and K4 against
+    their twins on a group of the 2D slabs.  (e) one 2^20 ``bh`` force
+    call each with ``delta_onepass`` (bitwise the default), sliding
+    windows (interior groups bitwise, boundary groups in the envelope),
+    ``quad_leaf`` and ``quad_leaf`` + ``fb_quad`` (in the envelope), with
+    their times.  Returns the launches and readings for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from nbody_tpu_torch import Simulation, cli
+    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import traversal as tt
+    from nbody_tpu_torch.ops import tree as ttree
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.scenes import disc_2d, self_gravitating_disc
+
+    out = {"launches": {}, "k3_abs": 0.0, "k4_abs": 0.0}
+    parts = []
+    common = dict(dt=3e-2, g_soft=EPS, theta2=1.0)
+
+    def cli_run(label, argv, spied=None):
+        """A CLI run with its final state saved: (result, launches, spied
+        stats, the final state as a Simulation of ``engine_options``)."""
+        ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                               dir=_build.BUILD_DIR)
+        ckpt = os.path.join(ckpt_dir.name, "state.pkl")
+        gf.reset_launch_counts()
+        tt.reset_host_reads()
+        run = lambda: cli.main([*argv, "--json", "--device", "cuda",
+                                "--save", ckpt])
+        r, seen = spy_engine(spied, run) if spied else (run(), [])
+        counts = gf.launch_counts()
+        out["launches"][label] = counts
+        nums = [v for v in r.values() if isinstance(v, float)]
+        require(all(map(math.isfinite, nums)), f"{label}: {r}")
+        return r, counts, seen, dict(tt.HOST_READS), ckpt, ckpt_dir
+
+    def envelope(label, st, acc, dim=3):
+        """The bh envelope against the K2 oracle on 4096 sampled alive
+        rows (2D rows as z = 0)."""
+        pos, a = st.pos, acc
+        if dim == 2:
+            pos = torch.nn.functional.pad(pos, (0, 1))
+            a = torch.nn.functional.pad(acc, (0, 1))
+        med, p99 = sampled_error(pos, st.effective_mass(), st.alive, a)
+        require(med < 2e-3 and p99 < 5e-2,
+                f"{label}: sampled median {med:.3e}, p99 {p99:.3e}")
+        return med, p99
+
+    # (a) walk reuse at 2^20 through the CLI, plain bh beside it
+    steps_total = 2 * REUSE_STEPS  # the CLI's warm run, then the timed one
+    r, counts, seen, reads, ckpt, ckpt_dir = cli_run(
+        "1M walk-every", ["-n", str(REUSE_N), "--engine", "bh",
+                          "--walk-every", str(REUSE_EVERY), "--steps",
+                          str(REUSE_STEPS), "--energy"], "bh_accel_reuse")
+    timed = seen[-REUSE_STEPS:]
+    flags = [s["full_walk"] for s in timed]
+    # the rule: a walk every REUSE_EVERY steps of age, and whenever more
+    # than half the particles left their cells (the engine's default 0.5)
+    want, age = [], 0
+    for s in timed:
+        want.append(int(age % REUSE_EVERY == 0 or s["moved_frac"] > 0.5))
+        age = 1 if want[-1] else age + 1
+    guard = [i for i, s in enumerate(timed) if s["moved_frac"] > 0.5]
+    require(len(seen) == steps_total, f"1M reuse: {len(seen)} force calls")
+    require(flags == want, f"1M reuse: full walks {flags}, rule {want}")
+    if not guard:
+        require(sum(flags) == REUSE_STEPS // REUSE_EVERY,
+                f"1M reuse: full walks {flags}")
+    require(counts["group_force"] >= steps_total
+            and counts["quad_force"] >= steps_total,
+            f"1M reuse: launches {counts}")
+    require(reads["moved_frac"] == steps_total,
+            f"1M reuse: {reads} host reads in {steps_total} steps")
+    require(r["energy_drift"] < 5e-3, f"1M reuse drift {r['energy_drift']}")
+    sim = Simulation(*self_gravitating_disc(REUSE_N, seed=0), engine="bh",
+                     engine_options=dict(walk_every=REUSE_EVERY),
+                     device="cuda", **common).load(ckpt)
+    ckpt_dir.cleanup()
+    sim.run(2)  # a full walk at the loaded state, then a cached step
+    st, prm = sim.state, sim.settings
+    tree, topo, age = sim._carry
+    m = st.effective_mass()
+    cfg = tt.BHConfig.auto_for(st.capacity)
+    acc, stats, *_ = tt.bh_accel_reuse(st.pos, m, prm.bounds, prm.theta2,
+                                       prm.g, prm.g_soft, tree, topo, age,
+                                       cfg, REUSE_EVERY)
+    require(stats["full_walk"] == 0, f"1M reuse: age {age} walked")
+    med_a, p99_a = envelope("1M reuse cached call", st, acc)
+    # at the positions of a full walk, the cached call is the full one
+    b0 = prm.bounds.centered()
+    pos_c = st.pos - prm.bounds.center
+    t_full = ttree.build_octree(pos_c, m, b0, cfg.max_level,
+                                **tt._build_args(cfg))
+    a_full, _, topo_f = tt.traverse_tree(t_full, b0, prm.theta2, prm.g,
+                                         prm.g_soft, cfg, st.capacity,
+                                         return_topo=True)
+    t_ref = ttree.refresh_octree(t_full, pos_c, m, quad=True)
+    calls = record_calls(lambda: out.update(cached=tt.traverse_tree_cached(
+        t_ref, topo_f, prm.theta2, prm.g, prm.g_soft, cfg, st.capacity)))
+    a_cached = out.pop("cached")[0]
+    e_static = rel_err(a_cached, a_full)
+    require(e_static < 1e-6, f"1M cached vs full at static positions: "
+            f"{e_static:.3e}")
+    bitwise = torch.equal(a_cached, a_full)
+    (a3, k3), = calls["group_force"]
+    stale = int(((a3[1][..., 3] == 0) & (a3[1][..., 4] != 0)).sum())
+    e3, abs3 = k3_check(*pick(a3, k3, [0, a3[0].shape[0] // 2]),
+                        "cached 1M slab")
+    (a4, k4), = calls["quad_force"]
+    e4, abs4 = k4_check(*pick(a4, k4, [busiest(a4[1])]), "cached 1M slab")
+    out["k3_abs"] = max(out["k3_abs"], abs3)
+    out["k4_abs"] = max(out["k4_abs"], abs4)
+    t_cached_ms = ms(lambda: tt.traverse_tree_cached(
+        t_ref, topo_f, prm.theta2, prm.g, prm.g_soft, cfg, st.capacity), 3)
+    t_full_ms = ms(lambda: tt.bh_accel(st.pos, m, prm.bounds, prm.theta2,
+                                       prm.g, prm.g_soft, cfg), 3)
+    del sim, st, tree, topo, t_full, t_ref, topo_f, calls, a3, a4
+    gf.reset_launch_counts()
+    r_bh = cli.main(["-n", str(REUSE_N), "--engine", "bh", "--steps",
+                     str(REUSE_STEPS), "--json", "--device", "cuda"])
+    out["launches"]["1M bh beside"] = gf.launch_counts()
+    parts.append(
+        f"(a) 2^20 --walk-every {REUSE_EVERY}, {REUSE_STEPS} steps: full "
+        f"walks {sum(flags)} at steps {[i for i, f in enumerate(flags) if f]}"
+        f" (guard fired at {guard}), launches {counts} and {steps_total} "
+        f"host reads in {steps_total} steps (warm run included), "
+        f"{r['steps_per_second']:.3f} steps/s (plain bh "
+        f"{r_bh['steps_per_second']:.3f}), drift {r['energy_drift']:.3e} "
+        f"({r['energy_method']}); final state's cached call vs K2 median "
+        f"{med_a:.3e} p99 {p99_a:.3e}; at a full walk's positions cached vs "
+        f"full {e_static:.2e} (bitwise {bitwise}), {t_cached_ms:.2f} ms "
+        f"cached against {t_full_ms:.2f} ms build + walk + eval; cached "
+        f"slab {stale} zero-mass rows with stale ids, K3 {e3:.2e}, K4 "
+        f"{e4:.2e} vs twins")
+
+    # (b) bh-lazy at 2^20
+    r, counts, seen, reads, ckpt, ckpt_dir = cli_run(
+        "1M bh-lazy", ["-n", str(REUSE_N), "--engine", "bh-lazy", "--steps",
+                       str(LAZY_STEPS)], "bh_accel_lazy")
+    rebuilds = [i for i, s in enumerate(seen[-LAZY_STEPS:]) if s["rebuilt"]]
+    fracs = [s["moved_frac"] for s in seen[-LAZY_STEPS:]]
+    require(counts["group_force"] >= 2 * LAZY_STEPS
+            and counts["quad_force"] >= 2 * LAZY_STEPS,
+            f"1M bh-lazy: launches {counts}")
+    require(reads["moved_frac"] == 2 * LAZY_STEPS,
+            f"1M bh-lazy: {reads} host reads")
+    sim = Simulation(*self_gravitating_disc(REUSE_N, seed=0),
+                     engine="bh-lazy", device="cuda", **common).load(ckpt)
+    ckpt_dir.cleanup()
+    sim.run(2)  # refreshed steps over the loaded state's tree
+    st, prm = sim.state, sim.settings
+    m = st.effective_mass()
+    acc, carry = sim.engine.force_carry(st.pos, m, prm, sim._carry)
+    med_b, p99_b = envelope("1M bh-lazy", st, acc)
+    pos_c = st.pos - prm.bounds.center
+    t0_ = ttree.build_octree(pos_c, m, prm.bounds.centered(), cfg.max_level,
+                             quad=True)
+    t1_ = ttree.refresh_octree(t0_, pos_c, m)
+    for name in ("order", "code_s", "leaf_starts"):
+        require(torch.equal(getattr(t0_, name), getattr(t1_, name)),
+                f"refresh {name}")
+    worst = 0.0
+    for a, b in zip(t0_.level_table, t1_.level_table):
+        require(torch.equal(a[:, 4:], b[:, 4:]), "refresh ranges")
+        mm = a[:, 0].abs().clamp_min(1e-30)
+        worst = max(worst, float(((a[:, :4] - b[:, :4]).abs()
+                                  / mm[:, None]).max()))
+    require(worst < 1e-6, f"refresh vs build: {worst:.3e}")
+    refresh_bitwise = all(torch.equal(a, b) for a, b in
+                          zip(t0_.level_table, t1_.level_table))
+    del sim, st, carry, t0_, t1_
+    parts.append(
+        f"(b) 2^20 bh-lazy, {LAZY_STEPS} steps: rebuilds at steps "
+        f"{rebuilds}, moved fractions {[round(f, 4) for f in fracs]}, "
+        f"launches {counts}, {r['steps_per_second']:.3f} steps/s (plain bh "
+        f"{r_bh['steps_per_second']:.3f}); final state vs K2 median "
+        f"{med_b:.3e} p99 {p99_b:.3e}; refresh at unchanged positions vs a "
+        f"fresh build: integer tables equal, statistics {worst:.1e} "
+        f"(bitwise {refresh_bitwise})")
+
+    # (c) walk reuse on the 100k flagship, plain bh beside it
+    r, counts, seen, reads, ckpt, ckpt_dir = cli_run(
+        "100k walk-every", ["-n", str(FLAGSHIP_N), "--engine", "bh",
+                            "--walk-every", str(REUSE_EVERY), "--steps",
+                            str(FLAGSHIP_STEPS), "--energy",
+                            "--energy-exact"], "bh_accel_reuse")
+    ckpt_dir.cleanup()
+    full_c = sum(s["full_walk"] for s in seen[-FLAGSHIP_STEPS:])
+    require(r["energy_drift"] < 1e-3, f"100k reuse drift {r['energy_drift']}")
+    require(counts["group_force_masked"] >= 2 * FLAGSHIP_STEPS
+            and counts["quad_force"] >= 4 * FLAGSHIP_STEPS,
+            f"100k reuse: launches {counts}")
+    gf.reset_launch_counts()
+    r_bh = cli.main(["-n", str(FLAGSHIP_N), "--engine", "bh", "--steps",
+                     str(FLAGSHIP_STEPS), "--json", "--device", "cuda"])
+    out["launches"]["100k bh beside"] = gf.launch_counts()
+    sim = Simulation(*self_gravitating_disc(FLAGSHIP_N, seed=0),
+                     engine="bh", engine_options=dict(walk_every=REUSE_EVERY),
+                     device="cuda", **common)
+    sim.run(REUSE_EVERY)  # warm; the next step walks, the one after not
+    sim.block_until_ready()
+    require(sim._carry[2] == REUSE_EVERY, f"age {sim._carry[2]}")
+    l_full = launches_in(sim.step)
+    l_cached = launches_in(sim.step)
+    plain = Simulation(*self_gravitating_disc(FLAGSHIP_N, seed=0),
+                       engine="bh", device="cuda", **common)
+    plain.run(1)
+    l_plain = launches_in(plain.step)
+    del sim, plain
+    parts.append(
+        f"(c) 100k --walk-every {REUSE_EVERY}, {FLAGSHIP_STEPS} steps: "
+        f"{full_c} full walks, launches {counts}, "
+        f"{r['steps_per_second']:.3f} steps/s (plain bh "
+        f"{r_bh['steps_per_second']:.3f}), drift {r['energy_drift']:.3e} "
+        f"({r['energy_method']}); kernel launches (runtime calls, kernels "
+        f"on the card) a step: full {l_full}, cached {l_cached}, plain bh "
+        f"{l_plain}")
+
+    # (d) a 2D state on bh
+    pos2, vel2, mass2 = disc_2d(DISC2D_N, seed=0)
+    kw2 = dict(engine="bh", bounds_center=(0.0, 0.0), bounds_width=10.0,
+               device="cuda", **common)
+    sim = Simulation(pos2, vel2, mass2, **kw2)
+    st = sim.state
+    cfg2 = dataclasses.replace(tt.BHConfig.auto_for(st.capacity), dim=2)
+    _, s0 = tt.bh_accel(st.pos, st.effective_mass(), sim.settings.bounds,
+                        1.0, 1.0, EPS, cfg2)
+    walk0 = {k: int(s0[k]) for k in ("accept_dropped", "frontier_fallback",
+                                     "near_fallback", "fb_spill")}
+    held = "auto preset"
+    if walk0["accept_dropped"]:
+        held = f"auto preset + {DISC2D_FALLBACK} (auto dropped: {walk0})"
+        sim = Simulation(pos2, vel2, mass2, engine_options=DISC2D_FALLBACK,
+                         **kw2)
+        cfg2 = dataclasses.replace(cfg2, **DISC2D_FALLBACK)
+    sim.run(1)
+    sim.block_until_ready()
+    sim.reset()
+    gf.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim.run(DISC2D_STEPS)
+    sim.block_until_ready()
+    rate2 = DISC2D_STEPS / (time.perf_counter() - t0)
+    counts = gf.launch_counts()
+    out["launches"]["2D 262144"] = counts
+    k3_2d = counts["group_force"] + counts["group_force_masked"]
+    require(k3_2d >= DISC2D_STEPS and counts["quad_force"] >= DISC2D_STEPS,
+            f"2D: launches {counts}")
+    st, prm = sim.state, sim.settings
+    m = st.effective_mass()
+    res = {}
+    calls = record_calls(lambda: res.update(r=tt.bh_accel(
+        st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg2)))
+    acc, s2 = res["r"]
+    walk2 = {k: int(s2[k]) for k in ("accept_dropped", "frontier_fallback",
+                                     "near_fallback", "fb_spill")}
+    require(walk2["accept_dropped"] == 0, f"2D walk {walk2}")
+    require(acc.shape == st.pos.shape and st.pos.shape[1] == 2, "2D shapes")
+    z = max(float(a[0][..., 2].abs().max()) + float(a[1][..., 2].abs().max())
+            for c in calls.values() for a, _k in c)
+    require(z == 0.0, f"2D: K3/K4 rows with z != 0 ({z})")
+    med_d, p99_d = envelope("2D 262144", st, acc, dim=2)
+    (a3, k3), *_ = calls["group_force"]
+    e3, abs3 = k3_check(*pick(a3, k3, [a3[0].shape[0] // 2]), "2D slab")
+    a4, k4 = calls["quad_force"][-1]
+    e4, abs4 = k4_check(*pick(a4, k4, [busiest(a4[1])]), "2D slab")
+    out["k3_abs"] = max(out["k3_abs"], abs3)
+    out["k4_abs"] = max(out["k4_abs"], abs4)
+    del sim, st, calls, a3, a4
+    parts.append(
+        f"(d) 2D disc {DISC2D_N} on bh ({held}; group {cfg2.group_size}, "
+        f"block_dual {cfg2.block_dual}), {DISC2D_STEPS} steps: launches "
+        f"{counts}, {rate2:.3f} steps/s; final state: {walk2}, vs K2 (z = 0"
+        f" rows) median {med_d:.3e} p99 {p99_d:.3e}; K3 {e3:.2e}, K4 "
+        f"{e4:.2e} vs twins on a group of the 2D slabs (z column all 0)")
+
+    # (e) the options on one 2^20 bh force call each
+    pos, vel, mass = self_gravitating_disc(REUSE_N, seed=0)
+    sim = Simulation(pos, vel, mass, engine="bh", device="cuda", **common)
+    st, prm = sim.state, sim.settings
+    m = st.effective_mass()
+    cfg = tt.BHConfig.auto_for(st.capacity)
+
+    def call(**over):
+        c = dataclasses.replace(cfg, **over)
+        return tt.bh_accel(st.pos, m, prm.bounds, prm.theta2, prm.g,
+                           prm.g_soft, c)[0]
+
+    a0 = call()
+    readings = [f"default {ms(call, 3):.2f} ms, median/p99 "
+                "{:.3e}/{:.3e}".format(*envelope("default", st, a0))]
+    a1 = call(delta_onepass=True)
+    require(torch.equal(a0, a1), "delta_onepass changed the forces")
+    readings.append(f"delta_onepass bitwise equal, "
+                    f"{ms(lambda: call(delta_onepass=True), 3):.2f} ms")
+    a2 = call(sliding_window=True)
+    order = ttree.build_octree(st.pos - prm.bounds.center, m,
+                               prm.bounds.centered(), cfg.max_level).order
+    B = cfg.group_size
+    edge = torch.zeros(st.capacity, dtype=torch.bool, device=st.pos.device)
+    edge[order[:B]] = True
+    edge[order[-B:]] = True
+    require(torch.equal(a2[~edge], a0[~edge]),
+            "sliding_window changed an interior group")
+    rows = torch.nonzero(edge & st.alive).squeeze(1)
+    oracle = pw.pairwise_acc_targets(st.pos[rows], st.pos, m, G, EPS)
+    rn = oracle.norm(dim=1)
+    err = ((a2[rows] - oracle).norm(dim=1)
+           / torch.clamp(rn, min=float(rn.median()))).cpu().numpy()
+    med_e, p99_e = float(np.median(err)), float(np.percentile(err, 99))
+    require(med_e < 2e-3 and p99_e < 5e-2,
+            f"sliding boundary groups: median {med_e:.3e} p99 {p99_e:.3e}")
+    readings.append(
+        f"sliding_window interior groups bitwise equal, boundary groups "
+        f"({rows.numel()} rows, all of them vs K2) median {med_e:.3e} p99 "
+        f"{p99_e:.3e}, "
+        f"{ms(lambda: call(sliding_window=True), 3):.2f} ms")
+    for over in (dict(quad_leaf=True), dict(quad_leaf=True, fb_quad=True)):
+        a = call(**over)
+        med, p99 = envelope(str(over), st, a)
+        readings.append(f"{over} median {med:.3e} p99 {p99:.3e}, "
+                        f"{ms(lambda: call(**over), 3):.2f} ms")
+    # the same two sums in float64 (plain torch on the card): whether the
+    # fallback quadrupole's tail comes from the f32 rounding or the
+    # expansion itself
+    b64 = dataclasses.replace(prm.bounds, center=prm.bounds.center.double(),
+                              half_width=prm.bounds.half_width.double())
+    for over in (dict(quad_leaf=True), dict(quad_leaf=True, fb_quad=True)):
+        c = dataclasses.replace(cfg, eval_mode="xla", **over)
+        a = tt.bh_accel(st.pos.double(), m.double(), b64, prm.theta2, prm.g,
+                        prm.g_soft, c)[0].float()
+        med, p99 = sampled_error(st.pos, m, st.alive, a)
+        readings.append(f"{over} in float64 median {med:.3e} p99 {p99:.3e}")
+    del sim, st, a0, a1, a2, a
+    parts.append("(e) one 2^20 bh force call: " + "; ".join(readings))
+    print(f"[21 reuse, lazy, 2D, options] {nvidia_smi()} | "
+          + " | ".join(parts), flush=True)
     return out
 
 
@@ -2125,11 +2553,15 @@ def main() -> int:
 
     # -- 20. the visualizer -------------------------------------------------
     vis = vis_phase()
+
+    # -- 21. walk reuse, bh-lazy, 2D states, the BH options -----------------
+    reuse = reuse_phase()
     smi = nvidia_smi()
 
-    # the main paths' launches: phases 9, 19 and 20 (each run read alone)
+    # the main paths' launches: phases 9, 19, 20 and 21 (each run read
+    # alone)
     bh_runs = [*bh_launches.values(), *adaptive["launches"].values(),
-               vis["launches"]]
+               vis["launches"], *reuse["launches"].values()]
     k4_launches = sum(c["quad_force"] for c in bh_runs)
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
         # no single PyTorch call computes a softened-gravity sum
@@ -2156,16 +2588,17 @@ def main() -> int:
         entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force"] for c in bh_runs),
-              max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"]), k3_ms,
-              k3_plain, k3_bnd),
+              max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"],
+                  reuse["k3_abs"]), k3_ms, k3_plain, k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force_masked"] for c in bh_runs),
-              max(k3m_abs, adaptive["k3_abs"]), k3m_ms, k3m_plain, k3m_bnd),
+              max(k3m_abs, adaptive["k3_abs"], reuse["k3_abs"]), k3m_ms,
+              k3m_plain, k3m_bnd),
         entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:362", k4_launches,
-              max(k4_abs, adaptive["k4_abs"], vis["quad_force_abs"]), k4_ms,
-              k4_plain, k4_bnd),
+              max(k4_abs, adaptive["k4_abs"], vis["quad_force_abs"],
+                  reuse["k4_abs"]), k4_ms, k4_plain, k4_bnd),
         entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
               "nbody_tpu/ops/group_force.py:250",
               sum(c["group_self_force"] for c in sym_launches.values()),

@@ -19,7 +19,9 @@ detects a steep-core scene from its leaf occupancy and routes it to
 ``refine_levels`` resolves the deep, tight-box or mid-N stack from the
 scene, as the JAX package does.  ``compensated=True`` carries a
 double-float low word for positions and velocities (``make_step_comp``).
-Not yet ported (they raise): stateful engines.
+Stateful engines (``bh-lazy``, ``bh`` with ``walk_every > 1``) carry their
+tree (and walk topology) between steps (``make_step_stateful``); ``reset``
+and ``load`` restore or rebuild that carry.
 """
 
 from __future__ import annotations
@@ -31,13 +33,15 @@ from typing import Optional
 import torch
 
 from nbody_tpu_torch.core.energy import resolve_energy_method, total_energy
-from nbody_tpu_torch.core.state import ParticleState, SimParams
+from nbody_tpu_torch.core.state import ParticleState, SimParams, resolve_device
 from nbody_tpu_torch.core.stepper import (
     init_comp,
     make_run,
     make_run_comp,
+    make_run_stateful,
     make_step,
     make_step_comp,
+    make_step_stateful,
 )
 from nbody_tpu_torch.engines import Engine, get_engine
 from nbody_tpu_torch.ops.traversal import (
@@ -50,19 +54,6 @@ from nbody_tpu_torch.ops.traversal import (
 # brute/bh crossover kept from the JAX package (measured on a TPU v5e,
 # nbody_tpu/api.py:49-59); still to be decided again on the H100
 _AUTO_BRUTE_MAX_N = 60000
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises if it is CUDA and there is none."""
-    device = torch.device(device)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was asked for but CUDA is not available; pass "
-            "device='cpu' to run the plain torch path on the CPU"
-        )
-    return device
 
 
 def resolve_auto_engine(n: int, device) -> str:
@@ -149,14 +140,6 @@ class Simulation:
         engine_options = _route_engine_options(
             engine, auto, engine_options, pos, bounds_center, bounds_width)
         self.engine = get_engine(engine, **(engine_options or {}))
-        if self.engine.stateful:
-            if compensated:
-                raise ValueError(
-                    "compensated=True is not supported with stateful engines "
-                    "(bh-lazy); use engine='bh'")
-            raise NotImplementedError(
-                "stateful engines (the stateful stepper) are not yet ported "
-                "to nbody_tpu_torch (ROADMAP.md, queue 1, item 16)")
         #: the engine's build options, after the scene routing
         self.engine_options = dict(engine_options or {})
         # capacities match the JAX package's, which pads the kernel engines
@@ -175,7 +158,16 @@ class Simulation:
         )
         self.compensated = bool(compensated)
         self._lo = None
-        if self.compensated:
+        self._carry = None
+        if self.engine.stateful:
+            if self.compensated:
+                raise ValueError(
+                    "compensated=True is not supported with stateful engines "
+                    "(bh-lazy); use engine='bh'")
+            self._carry = self._init_carry()
+            self._step = make_step_stateful(self.engine, integrator)
+            self._run = make_run_stateful(self.engine, integrator)
+        elif self.compensated:
             self._lo = init_comp(self._state)
             self._step = make_step_comp(self.engine.force, integrator)
             self._run = make_run_comp(self.engine.force, integrator)
@@ -194,14 +186,39 @@ class Simulation:
         )
         self._initial = self._state
         self._initial_lo = self._lo
+        self._initial_carry = self._carry
 
     def reset(self):
-        """Restore the initial particles (and low words), keep the current
-        settings."""
+        """Restore the initial particles (and low words or carry), keep the
+        current settings."""
         if self._initial is None:
             raise RuntimeError("init() was never called")
         self._state = self._initial
         self._lo = self._initial_lo
+        self._carry = self._initial_carry
+
+    def _init_carry(self):
+        """A stateful engine's carry bound to the current state."""
+        st = self._state
+        return self.engine.init_carry(st.pos, st.effective_mass(),
+                                      self._params)
+
+    def _stepper_args(self):
+        """The side carry the configured stepper threads: the carry of a
+        stateful engine, the low words of a compensated run, else none."""
+        if self.engine.stateful:
+            return (self._carry,)
+        return (self._lo,) if self.compensated else ()
+
+    def _keep(self, out):
+        """Store the stepper's output (a state, or a state and its side
+        carry)."""
+        if self.engine.stateful:
+            self._state, self._carry = out
+        elif self.compensated:
+            self._state, self._lo = out
+        else:
+            self._state = out
 
     # -- stepping ----------------------------------------------------------
 
@@ -209,37 +226,30 @@ class Simulation:
         self.step_by(None)
 
     def step_by(self, dt: Optional[float] = None):
-        if self.compensated:
-            self._state, self._lo = self._step(self._state, self._lo,
-                                               self._params, dt)
-        else:
-            self._state = self._step(self._state, self._params, dt)
+        self._keep(self._step(self._state, *self._stepper_args(),
+                              self._params, dt))
 
     def run(self, n_steps: int, dt: Optional[float] = None):
-        """n steps, enqueued without waiting for the device."""
-        if self.compensated:
-            self._state, self._lo = self._run(self._state, self._lo,
-                                              self._params, n_steps, dt)
-        else:
-            self._state = self._run(self._state, self._params, n_steps, dt)
+        """n steps, enqueued without waiting for the device (a stateful
+        engine reads one value back a step)."""
+        self._keep(self._run(self._state, *self._stepper_args(),
+                             self._params, n_steps, dt))
         return self._state
 
     def compile(self, n_steps: int, dt: Optional[float] = None):
         """Take the one-time costs out of a later timed window, as the JAX
         package's ``compile`` (an ahead-of-time lowering of the fused
         ``run``) does.  Eager torch has no program to lower, so here it
-        executes one step of the configured stepper (plain or compensated)
-        on the current state, which builds and loads the kernels its engine
-        launches (at their first use) and sizes the allocator's caches,
-        then waits for it and throws the result away: the state, the low
-        words, the clock and the ``reset`` target are left as they were
-        (the stepper makes new tensors and writes none in place).
-        ``n_steps`` is accepted for the JAX signature; a step costs the
-        same in every run.  Returns ``self``."""
-        if self.compensated:
-            self._step(self._state, self._lo, self._params, dt)
-        else:
-            self._step(self._state, self._params, dt)
+        executes one step of the configured stepper (plain, compensated or
+        stateful) on the current state, which builds and loads the kernels
+        its engine launches (at their first use) and sizes the allocator's
+        caches, then waits for it and throws the result away: the state,
+        the low words, a stateful engine's carry (its age included), the
+        clock and the ``reset`` target are left as they were (the steppers
+        make new tensors and write none in place).  ``n_steps`` is accepted
+        for the JAX signature; a step costs the same in every run.
+        Returns ``self``."""
+        self._step(self._state, *self._stepper_args(), self._params, dt)
         self.block_until_ready()
         return self
 
@@ -344,7 +354,8 @@ class Simulation:
         """Read a pickle written by ``save`` of either package.  The low
         words of a compensated checkpoint are restored in a compensated
         ``Simulation`` (zeros when the file has none) and ignored in a
-        plain one.  The restored point becomes the ``reset`` target."""
+        plain one.  A stateful engine's carry is rebuilt from the restored
+        state.  The restored point becomes the ``reset`` target."""
         _check_format(format)
         with open(path, "rb") as f:
             payload = pickle.load(f)
@@ -355,6 +366,10 @@ class Simulation:
             self._lo = (init_comp(self._state) if lo is None else tuple(
                 torch.as_tensor(lo[k], device=self.device)
                 for k in ("pos_lo", "vel_lo")))
+        if self.engine.stateful:
+            # the carried tree is bound to the positions it was built from
+            self._carry = self._init_carry()
         self._initial = self._state
         self._initial_lo = self._lo
+        self._initial_carry = self._carry
         return self

@@ -14,9 +14,12 @@ Example:
     python -m nbody_tpu_torch --scene plummer -n 1048576 --box-width 40 \
         --engine bh --adaptive --steps 5 --energy --json --device cuda
 
-Flags of paths that are not ported yet (sharding, walk reuse) are accepted
-by the parser so that a command line of the JAX package reads the same, and
-exit with a message.
+    python -m nbody_tpu_torch -n 1048575 --engine bh --walk-every 4 \
+        --steps 12 --energy --json --device cuda
+
+The flag of the path that is not ported yet (``--devices``, sharding) is
+accepted by the parser so that a command line of the JAX package reads the
+same, and exits with a message.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from nbody_tpu_torch.api import Simulation
 from nbody_tpu_torch.engines import ENGINES
 from nbody_tpu_torch.ops.traversal import (
     DENSE_OVERRIDES,
-    ROADMAP_OPT_IN,
     resolve_adaptive_overrides,
 )
 from nbody_tpu_torch.scenes import SCENES
@@ -99,7 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "below the leaf grid for dense cells "
                    "(BHConfig.refine_levels; bh/bh-deep only)")
     p.add_argument("--walk-every", type=int, default=1, metavar="K",
-                   help="not yet ported (bh walk reuse)")
+                   help="BH walk reuse: run the tree walk every K steps, "
+                   "evaluating the frozen walk topology at the current "
+                   "positions in between (bh/bh-deep only; 1 = walk every "
+                   "step)")
     p.add_argument("--compensated", action="store_true",
                    help="double-float (TwoSum) position/velocity updates: "
                    "closes most of the f32 energy-drift gap to float64")
@@ -160,8 +165,9 @@ def main(argv=None) -> dict:
     bounds_center = (0.0, 0.0, 0.0)
     eng_opts.update(_adaptive_options(args, pos, bounds_center))
     if args.walk_every > 1:
-        raise SystemExit("--walk-every is not yet ported to nbody_tpu_torch "
-                         f"({ROADMAP_OPT_IN})")
+        if not args.engine.startswith("bh") or args.engine == "bh-lazy":
+            raise SystemExit("--walk-every applies to bh/bh-deep only")
+        eng_opts.update(walk_every=args.walk_every)
     sim = Simulation(
         pos, vel, mass,
         engine=args.engine,

@@ -14,6 +14,11 @@ Differences from the JAX package:
   * ``from_numpy`` / ``to_numpy`` use the dict layout of the JAX package's
     checkpoint payload (``nbody_tpu.api.Simulation._payload``), so a pickle
     written by either package loads in the other.
+
+The constructors put their tensors on the card unless the caller passes
+``device="cpu"`` (``resolve_device``), as the JAX package's place them on
+the default device: without a card they raise rather than run the plain
+torch path unasked.
 """
 
 from __future__ import annotations
@@ -24,6 +29,19 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a torch.device; raises if it is CUDA and there is none."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was asked for but CUDA is not available; pass "
+            "device='cpu' to run the plain torch path on the CPU"
+        )
+    return device
 
 
 def _round_up(n: int, m: int) -> int:
@@ -50,7 +68,8 @@ class Bounds:
     half_width: torch.Tensor  # 0-d
 
     @staticmethod
-    def cube(center, width, dtype=torch.float32, device="cpu") -> "Bounds":
+    def cube(center, width, dtype=torch.float32, device="cuda") -> "Bounds":
+        device = resolve_device(device)
         center = torch.as_tensor(center, dtype=dtype, device=device)
         half = torch.as_tensor(width, dtype=dtype, device=device) * 0.5
         return Bounds(center=center, half_width=half)
@@ -106,7 +125,7 @@ class SimParams:
         bounds_center=(0.0, 0.0, 0.0),
         bounds_width=10.0,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
     ) -> "SimParams":
         return SimParams(
             g=_as_dtype(g, dtype),
@@ -138,8 +157,9 @@ class SimParams:
         return dataclasses.replace(self, **clean)
 
     @staticmethod
-    def from_numpy(p: dict, device="cpu") -> "SimParams":
+    def from_numpy(p: dict, device="cuda") -> "SimParams":
         """From the ``params`` dict of a checkpoint payload."""
+        device = resolve_device(device)
         center = torch.as_tensor(np.asarray(p["bounds_center"]), device=device)
         return SimParams(
             g=float(p["g"]),
@@ -218,12 +238,13 @@ class ParticleState:
         pad_multiple: int = 128,
         dtype=torch.float32,
         time=0.0,
-        device="cpu",
+        device="cuda",
     ) -> "ParticleState":
         """Build a state from [N, D] arrays, padding capacity up to a multiple
         of ``pad_multiple`` with dead particles (zero mass, ``alive=False``,
         parked at the origin).  Rounds from float64 exactly as the JAX
         package does, so both packages start from identical bits."""
+        device = resolve_device(device)
         pos = np.asarray(pos, dtype=np.float64)
         vel = np.asarray(vel, dtype=np.float64)
         mass = np.asarray(mass, dtype=np.float64)
@@ -292,8 +313,9 @@ class ParticleState:
     # -- checkpoint payload layout (shared with the JAX package)
 
     @staticmethod
-    def from_numpy(s: dict, device="cpu") -> "ParticleState":
+    def from_numpy(s: dict, device="cuda") -> "ParticleState":
         """From the ``state`` dict of a checkpoint payload."""
+        device = resolve_device(device)
         t = lambda k: torch.as_tensor(np.asarray(s[k]), device=device)
         return ParticleState(pos=t("pos"), vel=t("vel"), acc=t("acc"),
                              mass=t("mass"), alive=t("alive"), time=t("time"))

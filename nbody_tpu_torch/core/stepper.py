@@ -17,8 +17,11 @@ loop only enqueues work and never waits for the card.
 
 ``make_step_comp`` / ``make_run_comp`` are the compensated (double-float)
 variants: a second word per position and velocity component carries what
-f32 addition drops.  The stateful stepper (for ``bh-lazy``) is not ported
-yet (ROADMAP.md, queue 1, item 16).
+f32 addition drops.  ``make_step_stateful`` / ``make_run_stateful`` thread
+a stateful engine's carry (``bh-lazy``, ``bh`` with ``walk_every > 1``):
+those engines read one value back to the host a step (the moved fraction
+that decides a rebuild or a full walk, ``ops/traversal.py`` ``HOST_READS``);
+every other engine's step reads none.
 """
 
 from __future__ import annotations
@@ -31,14 +34,13 @@ from nbody_tpu_torch.core.integrators import Integrator, get_integrator
 from nbody_tpu_torch.core.state import ParticleState, SimParams
 
 
-def make_step(force_fn: Callable, integrator="leapfrog") -> Callable:
-    """Build ``step(state, params, dt=None) -> state``.
-
-    ``dt`` defaults to ``params.dt``; pass an explicit (possibly negative)
-    host float for ``step_by`` / rewind semantics."""
+def _carry_step(force_carry: Callable, integrator) -> Callable:
+    """``step(state, carry, params, dt=None) -> (state, carry)`` around
+    ``force_carry(pos, mass_eff, params, carry) -> (acc, carry)``: the
+    step_by sequence shared by the plain and the stateful steppers."""
     integ: Integrator = get_integrator(integrator)
 
-    def step(state: ParticleState, params: SimParams, dt=None) -> ParticleState:
+    def step(state: ParticleState, carry, params: SimParams, dt=None):
         dt = params.dt if dt is None else float(dt)
         alive_col = state.alive[:, None]
 
@@ -52,7 +54,7 @@ def make_step(force_fn: Callable, integrator="leapfrog") -> Callable:
         mass_eff = torch.where(alive, state.mass, torch.zeros_like(state.mass))
 
         # 3. forces
-        acc = force_fn(pos, mass_eff, params)
+        acc, carry = force_carry(pos, mass_eff, params, carry)
         acc = torch.where(alive_col, acc, torch.zeros_like(acc))
 
         # 4. kick + half drift
@@ -64,9 +66,44 @@ def make_step(force_fn: Callable, integrator="leapfrog") -> Callable:
             mass=state.mass,
             alive=alive,
             time=state.time + dt,
-        )
+        ), carry
 
     return step
+
+
+def make_step(force_fn: Callable, integrator="leapfrog") -> Callable:
+    """Build ``step(state, params, dt=None) -> state``.
+
+    ``dt`` defaults to ``params.dt``; pass an explicit (possibly negative)
+    host float for ``step_by`` / rewind semantics."""
+    step_c = _carry_step(lambda pos, m, p, c: (force_fn(pos, m, p), c),
+                         integrator)
+
+    def step(state: ParticleState, params: SimParams, dt=None) -> ParticleState:
+        return step_c(state, None, params, dt)[0]
+
+    return step
+
+
+def make_step_stateful(engine, integrator="leapfrog") -> Callable:
+    """``make_step`` for an engine that carries a cache between steps:
+    ``step(state, carry, params, dt=None) -> (state, carry)``
+    (``nbody_tpu/core/stepper.py:204``)."""
+    return _carry_step(engine.force_carry, integrator)
+
+
+def make_run_stateful(engine, integrator="leapfrog") -> Callable:
+    """``run(state, carry, params, n_steps, dt=None) -> (state, carry)``:
+    ``n_steps`` stateful steps back to back."""
+    step = make_step_stateful(engine, integrator)
+
+    def run(state: ParticleState, carry, params: SimParams, n_steps: int,
+            dt=None):
+        for _ in range(n_steps):
+            state, carry = step(state, carry, params, dt)
+        return state, carry
+
+    return run
 
 
 def make_run(force_fn: Callable, integrator="leapfrog") -> Callable:

@@ -6,9 +6,10 @@ the step loop in ``core/stepper.py``.  A registry entry is an ``Engine`` or a
 factory taking build options (``get_engine(name, **options)``), as in the
 JAX package.
 
-Only engines whose every part is ported are registered, so the registry
-never lists an engine that does not exist.  The JAX package's other engine
-names raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Every engine of the JAX package is registered.  A stateful engine
+(``bh-lazy``, ``bh`` with ``walk_every > 1``) carries a cache between steps
+through ``init_carry`` / ``force_carry``, which the stateful stepper
+threads (``core/stepper.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +18,6 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 ENGINES: dict = {}
-
-NOT_YET_PORTED = {
-    "bh-lazy": "the off-main-path BH variants (ROADMAP.md, queue 1, item 16)",
-}
 
 
 @dataclass(frozen=True)
@@ -33,9 +30,15 @@ class Engine:
     #: visualizer draws); None for the brute engines
     aux: Optional[Callable] = None
     description: str = ""
-    #: carries a cache between steps (``bh-lazy`` in the JAX package); the
-    #: stateful stepper is not ported yet (ROADMAP.md, queue 1, item 16)
-    stateful: bool = False
+    #: stateful engines carry a cache between steps:
+    #: init_carry(pos, mass, params) -> carry and
+    #: force_carry(pos, mass, params, carry) -> (acc, carry)
+    init_carry: Optional[Callable] = None
+    force_carry: Optional[Callable] = None
+
+    @property
+    def stateful(self) -> bool:
+        return self.force_carry is not None
 
 
 def register(engine: Engine) -> Engine:
@@ -48,11 +51,6 @@ def get_engine(name, **options) -> Engine:
     are bound through the factory registered under the name."""
     if isinstance(name, Engine):
         return name
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not yet ported to nbody_tpu_torch; it comes "
-            f"with {NOT_YET_PORTED[name]}"
-        )
     try:
         entry = ENGINES[name]
     except KeyError:
@@ -72,3 +70,4 @@ from nbody_tpu_torch.engines import barnes_hut as _bh  # noqa: E402
 
 ENGINES["bh"] = _bh.bh_factory
 ENGINES["bh-deep"] = _bh.bh_deep_factory
+ENGINES["bh-lazy"] = _bh.make_bh_lazy_engine

@@ -42,27 +42,38 @@ CPU tensors.  Nothing is chosen by failure.
 The potential estimator (``bh_potential``, ``traverse_tree_phi``) runs the
 same walk and evaluates its slab as monopoles in plain torch on the tree's
 device, as the JAX package's is XLA, not Pallas.
+
+2D states walk a quadtree (``BHConfig.dim = 2``: four children a cell) over
+3-wide rows with z = 0, so the kernels see the same slabs.  Walk reuse
+(``traverse_tree(return_topo=True)``, ``traverse_tree_cached``,
+``bh_accel_reuse``) and the lazy rebuild (``bh_accel_lazy``) keep a frozen
+binning between steps; where the JAX package decides "full or cached" and
+"rebuild or refresh" with ``lax.cond`` on the card, these read the moved
+fraction back to the host once a step (``HOST_READS``) and branch there.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from typing import NamedTuple
+
 import torch
 
 from nbody_tpu_torch.ops import group_force as gf
+from nbody_tpu_torch.ops import morton
 from nbody_tpu_torch.ops.tree import (
-    BRANCH,
     LinearOctree,
     _compact,
     build_octree,
     decode_ranges,
+    grid_bounds,
+    refresh_octree,
 )
+from nbody_tpu_torch.ops.work import LOCK
 
-# ROADMAP.md items of what this slice leaves out (queue 1)
-ROADMAP_OPT_IN = "ROADMAP.md, queue 1, item 16"
+# the ROADMAP.md item of what the port leaves out (queue 1)
 ROADMAP_PARALLEL = "ROADMAP.md, queue 1, item 17"
-ROADMAP_BH_OPTIONS = "ROADMAP.md, queue 1, item 18"
 
 # profile='dense' field stack (auto_for / make_bh_engine / --dense), as in
 # the JAX package (traversal.py:66)
@@ -171,9 +182,10 @@ def _unported(what: str, item: str):
 @dataclass(frozen=True)
 class BHConfig:
     """Static traversal configuration: the JAX package's fields with the
-    same defaults (``nbody_tpu/ops/traversal.py:266``; the comments there
-    record how each default was tuned on a TPU v5e).  Fields of paths this
-    package does not port yet raise ``NotImplementedError`` when set."""
+    same defaults and checks (``nbody_tpu/ops/traversal.py:266-548``; the
+    comments there record how each default was tuned on a TPU v5e).
+    ``wide`` (the domain path's N >= 2^24 row format) raises
+    ``NotImplementedError``: it comes with the sharded paths."""
 
     max_level: int = 7
     dim: int = 3
@@ -215,13 +227,15 @@ class BHConfig:
     refine_far_particle_cap: int = 4096
 
     def __post_init__(self):
+        branch = 1 << self.dim
         if self.refine_levels:
-            # the JAX package's checks and texts (traversal.py:496-522)
-            if self.max_level + self.refine_levels > 10:
+            # the JAX package's checks and texts (traversal.py:497-548)
+            limit = 10 if self.dim == 3 else 15
+            if self.max_level + self.refine_levels > limit:
                 raise ValueError(
                     f"max_level + refine_levels = "
                     f"{self.max_level + self.refine_levels} exceeds the "
-                    f"{self.dim}D Morton depth limit (10)")
+                    f"{self.dim}D Morton depth limit ({limit})")
             if self.wide:
                 raise ValueError(
                     "refine_levels does not support the wide row format "
@@ -232,22 +246,17 @@ class BHConfig:
                 raise ValueError(
                     "refine_levels does not support fb_quad (refined "
                     "fallback rows have no quadrupole table entry)")
-            if self.refine_frontier <= 0 or self.refine_frontier % BRANCH:
+            if self.refine_frontier <= 0 or self.refine_frontier % branch:
                 raise ValueError(
                     f"refine_frontier must be a positive multiple of "
-                    f"{BRANCH}, got {self.refine_frontier}")
-        for name, on in (("sliding_window", self.sliding_window),
-                         ("delta_onepass", self.delta_onepass)):
-            if on:
-                _unported(name, ROADMAP_OPT_IN)
+                    f"{branch}, got {self.refine_frontier}")
+        # fb rows can be leaf cells, whose quadrupole gather needs the leaf
+        # level in the table
+        if self.fb_quad and not self.quad_leaf:
+            raise ValueError("fb_quad=True requires quad_leaf=True")
         if self.wide:
             _unported("wide (the N >= 2^24 domain row format)",
                       ROADMAP_PARALLEL)
-        for name, on in (("quad_leaf=True", self.quad_leaf),
-                         ("fb_quad=True", self.fb_quad),
-                         ("dim=2 (quadtree states)", self.dim != 3)):
-            if on:
-                _unported(name, ROADMAP_BH_OPTIONS)
         if self.multipole not in ("quad", "mono"):
             raise ValueError(
                 f"multipole must be 'quad' or 'mono', got {self.multipole!r}")
@@ -268,14 +277,19 @@ class BHConfig:
                     f" entries, got {len(sched)}")
         else:
             sched = tuple(
-                min(BRANCH ** l, self.frontier_cap,
+                min(self.branch ** l, self.frontier_cap,
                     max(512, self.frontier_cap >> (self.max_level - l)))
                 for l in range(self.start_level + 1, self.max_level + 1))
         # slots must stay multiples of the branch factor (parent compaction)
-        if any(s % BRANCH for s in sched):
-            raise ValueError(f"frontier slots must be multiples of {BRANCH}: "
-                             f"{sched}")
+        if any(s % self.branch for s in sched):
+            raise ValueError(f"frontier slots must be multiples of "
+                             f"{self.branch}: {sched}")
         return sched
+
+    @property
+    def branch(self) -> int:
+        """Children per cell: 8 (octree) or 4 (quadtree)."""
+        return 1 << self.dim
 
     @property
     def window(self) -> int:
@@ -498,48 +512,93 @@ def _fb_terms(gpos, gidx, gmass, fb, eps2):
     bounded.  A cell whose sorted range holds the target has the target's
     own mass and position removed in closed form:
         M' = M - m_i,   com' = (S - m_i p_i) / M'
-    Yields (m_eff, dx, dy, dz, ok, inv_r), each [C, B, F]; empty slots and
-    self-only cells have ok False."""
+    Yields (chunk slice, mi, m_eff, com' [C, B, F, 3], d = com' - p, ok,
+    inv_r), the others [C, B, F]; empty slots and self-only cells have ok
+    False."""
     G, B, _ = gpos.shape
     F = fb.shape[1]
     tiny = torch.finfo(gpos.dtype).tiny
     step = max(1, (1 << 25) // max(B * F, 1))
     for c0 in range(0, G, step):
-        p = gpos[c0:c0 + step][:, :, None, :]  # [C, B, 1, 3]
-        f = fb[c0:c0 + step][:, None, :, :]  # [C, 1, F, 8]
-        inside = _fb_inside(fb[c0:c0 + step], gidx[c0:c0 + step], gpos.dtype)
-        mi = torch.where(inside, gmass[c0:c0 + step][:, :, None], 0.0)
+        sl = slice(c0, c0 + step)
+        p = gpos[sl][:, :, None, :]  # [C, B, 1, 3]
+        f = fb[sl][:, None, :, :]  # [C, 1, F, 8]
+        inside = _fb_inside(fb[sl], gidx[sl], gpos.dtype)
+        mi = torch.where(inside, gmass[sl][:, :, None], 0.0)
         m_eff = f[..., 0] - mi
         den = torch.clamp(m_eff, min=tiny)
-        dx = (f[..., 1] - mi * p[..., 0]) / den - p[..., 0]
-        dy = (f[..., 2] - mi * p[..., 1]) / den - p[..., 1]
-        dz = (f[..., 3] - mi * p[..., 2]) / den - p[..., 2]
-        r2 = dx * dx + dy * dy + dz * dz + eps2
+        com = (f[..., 1:4] - mi[..., None] * p) / den[..., None]
+        d = com - p
+        r2 = _sq3(d) + eps2
         ok = (m_eff > 0.0) & (r2 > 0.0)
         inv_r = torch.rsqrt(torch.where(ok, r2, 1.0))
-        yield m_eff, dx, dy, dz, ok, inv_r
+        yield sl, mi, m_eff, com, d, ok, inv_r
 
 
-def _fb_eval(gpos, gidx, gmass, fb, g, eps2):
-    """Self-excluded monopole acceleration from the overflow-fallback slab
-    (``_fb_terms``) -> [G, B, 3]."""
+def _level_offsets(lvl, branch: int):
+    """Row of level ``lvl`` (an int tensor, >= 0) in the all-level quadrupole
+    table, (branch^l - 1) / (branch - 1), computed on the device."""
+    dim = branch.bit_length() - 1
+    return (torch.ones_like(lvl) << (dim * lvl)) // (branch - 1)
+
+
+def _fb_eval(gpos, gidx, gmass, fb, g, eps2, all_quad=None,
+             branch: int = 8):
+    """Self-excluded acceleration from the overflow-fallback slab
+    (``_fb_terms``) -> [G, B, 3].  With ``all_quad`` (``fb_quad``) each
+    cell adds its self-excluded traceless quadrupole
+    (``nbody_tpu/ops/traversal.py:880-925``): the raw second moments by
+    (level, cell id) in slots 6/7 minus the target's own m_i p pᵀ,
+    centralized about com'."""
     out = []
-    for m_eff, dx, dy, dz, ok, inv_r in _fb_terms(gpos, gidx, gmass, fb,
-                                                  eps2):
-        s = torch.where(ok, inv_r * inv_r * inv_r * m_eff, 0.0)
-        out.append(torch.stack([(s * dx).sum(-1), (s * dy).sum(-1),
-                                (s * dz).sum(-1)], dim=-1))
+    for sl, mi, m_eff, com, d, ok, inv_r in _fb_terms(gpos, gidx, gmass, fb,
+                                                      eps2):
+        ir2 = inv_r * inv_r
+        ir3 = ir2 * inv_r
+        s = torch.where(ok, ir3 * m_eff, 0.0)
+        ex, ey, ez = d[..., 0], d[..., 1], d[..., 2]
+        acc = torch.stack([(s * ex).sum(-1), (s * ey).sum(-1),
+                           (s * ez).sum(-1)], dim=-1)
+        if all_quad is not None:
+            f = fb[sl]
+            lvl = f[..., 6].to(torch.int64)
+            # empty slots decode to the root, masked by ok (M = 0)
+            s2 = all_quad[_level_offsets(lvl, branch)
+                          + f[..., 7].to(torch.int64)][:, None]  # [C,1,F,8]
+            p = gpos[sl][:, :, None, :]
+            px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+            cx, cy, cz = com[..., 0], com[..., 1], com[..., 2]
+            pxx = (s2[..., 0] - mi * px * px) - m_eff * cx * cx
+            pyy = (s2[..., 1] - mi * py * py) - m_eff * cy * cy
+            pzz = (s2[..., 2] - mi * pz * pz) - m_eff * cz * cz
+            pxy = (s2[..., 3] - mi * px * py) - m_eff * cx * cy
+            pxz = (s2[..., 4] - mi * px * pz) - m_eff * cx * cz
+            pyz = (s2[..., 5] - mi * py * pz) - m_eff * cy * cz
+            tr = pxx + pyy + pzz
+            qxx, qyy, qzz = 3 * pxx - tr, 3 * pyy - tr, 3 * pzz - tr
+            qxy, qxz, qyz = 3 * pxy, 3 * pxz, 3 * pyz
+            ux = qxx * ex + qxy * ey + qxz * ez
+            uy = qxy * ex + qyy * ey + qyz * ez
+            uz = qxz * ex + qyz * ey + qzz * ez
+            qe = ex * ux + ey * uy + ez * uz
+            ir5 = ir3 * ir2
+            w = torch.where(ok, 2.5 * qe * (ir5 * ir2), 0.0)
+            ir5 = torch.where(ok, ir5, 0.0)
+            acc = acc + torch.stack([(w * ex - ir5 * ux).sum(-1),
+                                     (w * ey - ir5 * uy).sum(-1),
+                                     (w * ez - ir5 * uz).sum(-1)], dim=-1)
+        out.append(acc)
     return g * torch.cat(out)
 
 
 def _fb_phi(gpos, gidx, gmass, fb, g, eps2):
     """Self-excluded potential from the overflow-fallback slab, the φ
-    analog of ``_fb_eval``: φ_i += -G M' / sqrt(|com' - p_i|^2 + eps^2)
-    -> [G, B]."""
+    analog of ``_fb_eval``'s monopole terms: φ_i += -G M' /
+    sqrt(|com' - p_i|^2 + eps^2) -> [G, B]."""
     return -g * torch.cat([
         torch.where(ok, m_eff * inv_r, 0.0).sum(-1)
-        for m_eff, _dx, _dy, _dz, ok, inv_r in _fb_terms(gpos, gidx, gmass,
-                                                         fb, eps2)])
+        for _sl, _mi, m_eff, _com, _d, ok, inv_r in _fb_terms(
+            gpos, gidx, gmass, fb, eps2)])
 
 
 # ---------------------------------------------------------------------------
@@ -565,29 +624,45 @@ def _capped(mask, cap: int):
     return mask & (torch.cumsum(mask.to(torch.int32), 1) <= cap)
 
 
-def _children(parents, keep, parent_cap: int):
+def _children(parents, keep, parent_cap: int, branch: int):
     """Compact the kept parents to ``parent_cap`` slots a group and list
-    their children: (ids [G, parent_cap * 8], valid).  Invalid slots hold
-    the children of parent 0, so every id indexes in range."""
+    their children: (ids [G, parent_cap * branch], valid).  Invalid slots
+    hold the children of parent 0, so every id indexes in range."""
     p, pvalid, _ = _compact(parents, keep, parent_cap)
-    ids = (p[:, :, None] * BRANCH
-           + torch.arange(BRANCH, dtype=torch.int32, device=p.device)
-           ).reshape(p.shape[0], parent_cap * BRANCH)
-    return ids, pvalid.repeat_interleave(BRANCH, dim=1)
+    ids = (p[:, :, None] * branch
+           + torch.arange(branch, dtype=torch.int32, device=p.device)
+           ).reshape(p.shape[0], parent_cap * branch)
+    return ids, pvalid.repeat_interleave(branch, dim=1)
 
 
-def _cover(delta, occupied, cs, ce, wstart, wend, W: int):
+def _cover(delta, pending, occupied, cs, ce, wstart, wend, W: int):
     """Cells whose sorted range lies wholly inside the group's window
     (summed exactly by the window pass): marked in the coverage diff array
     ``delta`` [G, W + 1] (+1 at the start, -1 past the end; column W is
-    trash).  Returns the covered mask."""
+    trash).  With ``pending`` (a list: ``BHConfig.delta_onepass``) the
+    updates are collected there for one scatter-add after the walk, the
+    same integers.  Returns the covered mask."""
     covered = occupied & (cs >= wstart[:, None]) & (ce <= wend[:, None])
     inc = covered.to(torch.int32)
-    delta.scatter_add_(
-        1, torch.where(covered, cs - wstart[:, None], W).long(), inc)
-    delta.scatter_add_(
-        1, torch.where(covered, ce - wstart[:, None], W).long(), -inc)
+    upd = ((torch.where(covered, cs - wstart[:, None], W).long(), inc),
+           (torch.where(covered, ce - wstart[:, None], W).long(), -inc))
+    if pending is not None:
+        pending.extend(upd)
+    else:
+        for idx, val in upd:
+            delta.scatter_add_(1, idx, val)
     return covered
+
+
+def _group_center(gpos, gmass):
+    """Group frame of the norm-trick eval: the midpoint of the alive
+    members' box (the origin for a group with none).  gpos [G, B, 3],
+    gmass [G, B] -> [G, 3]."""
+    has = (gmass > 0)[..., None]
+    big = torch.finfo(gpos.dtype).max
+    glo = torch.where(has, gpos, big).amin(dim=1)
+    ghi = torch.where(has, gpos, -big).amax(dim=1)
+    return torch.where(has.any(dim=1), 0.5 * (glo + ghi), 0.0)
 
 
 # elements of one [G, F, S, 3] block of the walk's distance test
@@ -611,8 +686,9 @@ def _rmin2(com, gc, gh):
 
 
 def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
-                   window: int, gpos, gmass, gidx):
-    """The collect walk for all G groups at once.
+                   window: int, gpos, gmass, gidx, sliding: bool = False):
+    """The collect walk for all G groups at once
+    (``nbody_tpu/ops/traversal.py:1124-1526``).
 
     gpos [G, B, 3], gmass [G, B], gidx [G, B] (sorted indices, int32) ->
     dict with the multipole slab ``mono`` [G, accept_cap, 8] (com, M, -1,
@@ -622,10 +698,13 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     ``center`` [G, 3], the fallback slab ``fb`` [G, fb_cap, 8] and the four
     walk counters [G].  With ``cfg.refine_levels`` also the refined-near
     ranges ``rnear`` [G, RC, 2] / ``rnear_valid`` [G, RC] and the counter
-    ``refine_near_totals`` [G] (their particles)."""
+    ``refine_near_totals`` [G] (their particles).  ``sliding``
+    (``_sliding_ok``) leaves the window starts unclamped, as the
+    gather-free window assembly reads them."""
     G, B, _ = gpos.shape
     L = cfg.max_level
     W = window
+    branch = cfg.branch
     dtype, dev = gpos.dtype, gpos.device
 
     # per-subgroup boxes over alive members (their union covers the group
@@ -644,18 +723,17 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     hi = torch.where(any_alive, hi, 1e30)
     gc = 0.5 * (lo + hi)
     gh = 0.5 * (hi - lo)
+    center = _group_center(gpos, gmass)
 
-    # group frame of the norm-trick eval: midpoint of the alive members' box
-    glo = masked_lo.amin(dim=(1, 2))
-    ghi = masked_hi.amax(dim=(1, 2))
-    center = torch.where(has.any(dim=(1, 2))[:, None], 0.5 * (glo + ghi), 0.0)
-
-    # sorted-index window around each group, clamped into range
-    wstart = torch.clamp(gidx[:, 0] - cfg.window_pad, 0, max(n_total - W, 0))
+    # sorted-index window around each group: clamped into range, or
+    # unclamped (zero rows past the array's ends) for the sliding assembly
+    wstart = gidx[:, 0] - cfg.window_pad
+    if not sliding:
+        wstart = torch.clamp(wstart, 0, max(n_total - W, 0))
     wend = wstart + W
 
     sched = cfg.schedule()
-    n0 = BRANCH ** cfg.start_level
+    n0 = branch ** cfg.start_level
     ids = torch.arange(n0, dtype=torch.int32, device=dev).expand(G, n0)
     valid = torch.ones((G, n0), dtype=torch.bool, device=dev)
     thr = _scalar(cfg.accept_margin, gpos) * _scalar(theta2, gpos)
@@ -673,8 +751,9 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     # window-coverage diff array (+1 at a covered range's start, -1 past its
     # end); slot W is trash
     delta = torch.zeros((G, W + 1), **i32)
+    pending = [] if cfg.delta_onepass else None
     R = cfg.refine_levels
-    rf_parent_cap = cfg.refine_frontier // BRANCH
+    rf_parent_cap = cfg.refine_frontier // branch
 
     for l in range(cfg.start_level, L + 1):
         # one packed-row gather per slot: (m, mx, my, mz, start, end, _, _)
@@ -685,7 +764,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         com = row[..., 1:4] / torch.where(occupied, m, 1.0)[..., None]
         cs, ce = decode_ranges(row)
 
-        covered = _cover(delta, occupied, cs, ce, wstart, wend, W)
+        covered = _cover(delta, pending, occupied, cs, ce, wstart, wend, W)
 
         accept = occupied & ~covered & (cell_w2[l]
                                         < thr * _rmin2(com, gc, gh))
@@ -694,7 +773,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         if l < L:
             # cells that would expand past the parent cap degrade to
             # self-excluded monopoles (counted, never dropped)
-            parent_cap = sched[l - cfg.start_level] // BRANCH
+            parent_cap = sched[l - cfg.start_level] // branch
             overflowed = expand & ~_capped(expand, parent_cap)
             f_fallback = f_fallback + overflowed.sum(dim=1, dtype=torch.int32)
             expand = expand & ~overflowed
@@ -728,7 +807,9 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         fb_spill = fb_spill + fb_drop.sum(dim=1, dtype=torch.int32)
 
         # accepted nodes (+ fb spill, which loses only the self-exclusion
-        # and whose level -1 zeroes its quadrupole) -> multipole slab rows
+        # and whose level -1 zeroes its quadrupole) -> multipole slab rows;
+        # slot 7 keeps the true level, by which the cached-topology path
+        # re-gathers (no kernel reads it)
         mono_mask = accept | fb_drop
         neg = torch.full_like(idf, -1.0)
         mrows = torch.stack(
@@ -739,12 +820,13 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         a_dropped = a_dropped + mono_drop.sum(dim=1, dtype=torch.int32)
 
         if l < L:
-            ids, valid = _children(ids, expand, parent_cap)
+            ids, valid = _children(ids, expand, parent_cap, branch)
         else:
             near_ids, near_valid, _ = _compact(ids, expand,
                                                cfg.near_cell_cap)
             if R:
-                rids, rvalid = _children(rbase, descend, rf_parent_cap)
+                rids, rvalid = _children(rbase, descend, rf_parent_cap,
+                                         branch)
 
     # refined levels: the same rules over the slot-indexed refined tables.
     # ``rids`` are rows of refine_tables[r - 1]; children of a row j that
@@ -764,7 +846,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         occupied = m > 0
         com = row[..., 1:4] / torch.where(occupied, m, 1.0)[..., None]
         cs, ce = decode_ranges(row)
-        covered = _cover(delta, occupied, cs, ce, wstart, wend, W)
+        covered = _cover(delta, pending, occupied, cs, ce, wstart, wend, W)
         accept = occupied & ~covered & (cell_w2[L + r]
                                         < thr * _rmin2(com, gc, gh))
         expand = occupied & ~covered & ~accept
@@ -808,8 +890,12 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                                                accept | fb_drop, A)
         a_dropped = a_dropped + mono_drop.sum(dim=1, dtype=torch.int32)
         if r < R:
-            rids, rvalid = _children(rbase, descend, rf_parent_cap)
+            rids, rvalid = _children(rbase, descend, rf_parent_cap, branch)
 
+    if pending:
+        # delta_onepass: every level's coverage updates in one scatter-add
+        delta.scatter_add_(1, torch.cat([i for i, _ in pending], dim=1),
+                           torch.cat([v for _, v in pending], dim=1))
     wmask = torch.cumsum(delta, dim=1)[:, :W] > 0
     out = dict(mono=mono[:, :A], near_ids=near_ids, near_valid=near_valid,
                wmask=wmask, wstart=wstart, center=center, fb=fb[:, :FB],
@@ -862,23 +948,21 @@ def _expand_from_ranges(nstart, nend, cell_valid, cap: int):
 # ---------------------------------------------------------------------------
 
 
-def _quad_slab(mono, all_quad, excl_level: int = -1):
+def _quad_slab(mono, all_quad, excl_level: int = -1, branch: int = 8):
     """Expand the multipole slab mono [G, A, 8] into 16-wide quadrupole rows
     [G, A, 16]: raw second moments from ``all_quad`` centralized about the
     node COM (P = S2 - M c cᵀ, traceless Q = 3P - tr(P) I).  Rows of level
-    -1 (fb spill) and of ``excl_level`` (leaf cells: quad_leaf=False) keep
-    Q = 0."""
+    -1 (fb spill) and of ``excl_level`` (leaf cells with quad_leaf=False;
+    -1 keeps them) keep Q = 0."""
     lvl = mono[..., 5].to(torch.int32)
     cid = mono[..., 6].to(torch.int32)
     m = mono[..., 3]
     okq = (lvl >= 0) & (m > 0)
     if excl_level >= 0:
         okq = okq & (lvl != excl_level)
-    # row of (level, cell id) in the all-level table: level_offset(l) + cid
-    # with level_offset(l) = (8^l - 1) / 7, computed on the device
+    # row of (level, cell id) in the all-level table
     lvl0 = torch.clamp(lvl, min=0).long()
-    goff = (torch.ones_like(lvl0) << (3 * lvl0)) // (BRANCH - 1)
-    gid = torch.where(okq, goff + cid, 0)
+    gid = torch.where(okq, _level_offsets(lvl0, branch) + cid, 0)
     s2 = all_quad[gid.long()]
     cx, cy, cz = mono[..., 0], mono[..., 1], mono[..., 2]
     pxx = s2[..., 0] - m * cx * cx
@@ -1123,11 +1207,38 @@ def _split_window(pmass8, tgt8, wstart, wmask, W: int):
     return rrows, mcen
 
 
-def _window_rows(pmass8, wstart, wmask, W: int):
-    """The [G, W, 8] sorted-neighbour window rows at each group's clamped
-    start, masses zeroed outside the covered cells."""
-    idx = wstart[:, None].long() + torch.arange(W, device=pmass8.device)
-    wrows = pmass8[idx]
+def _sliding_ok(cfg: BHConfig, W: int) -> bool:
+    """Whether the gather-free window assembly applies
+    (``BHConfig.sliding_window``; ``nbody_tpu/ops/traversal.py:2013``): an
+    unclipped window whose pads fit in a group, and neither ``near_sym``
+    (its rim gather needs the clamp) nor the wide rows.  A function of
+    (cfg, W) alone, so the walk's window starts and every assembly agree."""
+    return (cfg.sliding_window
+            and W == cfg.group_size + 2 * cfg.window_pad
+            and cfg.window_pad <= cfg.group_size
+            and not cfg.near_sym
+            and not cfg.wide)
+
+
+def _window_rows(pmass8, wstart, wmask, W: int, cfg: BHConfig = None,
+                 sliding: bool = False):
+    """The [G, W, 8] sorted-neighbour window rows, masses zeroed outside the
+    covered cells: a gather at each group's clamped start, or with
+    ``sliding`` three shifted reshapes of the rows (the left pad, the
+    group, the right pad; zero rows past the array's ends), matching the
+    walk's unclamped starts."""
+    if sliding:
+        B, p = cfg.group_size, cfg.window_pad
+        G = pmass8.shape[0] // B
+        wrows = pmass8.reshape(G, B, 8)
+        if p:
+            zeros = lambda k: pmass8.new_zeros((k, 8))
+            left = torch.cat([zeros(p), pmass8[:-p]]).reshape(G, B, 8)
+            right = torch.cat([pmass8[B:], zeros(B)]).reshape(G, B, 8)
+            wrows = torch.cat([left[:, :p], wrows, right[:, :p]], dim=1)
+    else:
+        idx = wstart[:, None].long() + torch.arange(W, device=pmass8.device)
+        wrows = pmass8[idx]
     m = torch.where(wmask, wrows[..., 3], 0.0)
     return torch.cat([wrows[..., :3], m[..., None], wrows[..., 4:]], dim=-1)
 
@@ -1154,7 +1265,8 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
         wrows, mcen = _split_window(pmass8, tgt8, walk["wstart"],
                                     walk["wmask"], W)
     else:
-        wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
+        wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W, cfg,
+                             _sliding_ok(cfg, W))
     if cfg.multipole == "quad":
         # particle rows through K3; accepted nodes through K4
         slab = torch.cat([wrows, nrows], dim=1)
@@ -1166,7 +1278,9 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
         acc = acc + _self_square_eval(tgt8, mcen, g, eps2, g_soft, cfg, mode)
         mark("K5")
     if cfg.multipole == "quad":
-        qslab = _quad_slab(walk["mono"], tree.all_quad, cfg.max_level)
+        qslab = _quad_slab(walk["mono"], tree.all_quad,
+                           -1 if cfg.quad_leaf else cfg.max_level,
+                           cfg.branch)
         acc = acc + _quad_eval(qslab, tgt8, g, eps2, g_soft, cfg, mode)
         mark("K4")
     slab_fill = (slab[..., 3] != 0.0).to(slab.dtype).mean()
@@ -1177,10 +1291,9 @@ def _no_mark(_name):
     pass
 
 
-def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
-    """Pack the sorted particles into slab rows, padded to whole chunks of
-    groups, and run the collect walk for every group.  Returns (eps2,
-    pmass8 [n_tot, 8], tgt8 [G, B, 8], gidx [G, B], W, walk)."""
+def _pack(tree, g_soft, cfg: BHConfig, n: int):
+    """The sorted particles as slab rows, padded to whole chunks of groups.
+    Returns (eps2, pmass8 [n_tot, 8], tgt8 [G, B, 8], gidx [G, B], W)."""
     B = cfg.group_size
     block = B * cfg.chunk_groups
     pad = (-n) % block
@@ -1200,13 +1313,21 @@ def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
     G = n_tot // B
     tgt8 = pmass8.reshape(G, B, 8)
     gidx = torch.arange(n_tot, dtype=torch.int32, device=dev).reshape(G, B)
+    return eps2, pmass8, tgt8, gidx, W
+
+
+def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
+    """``_pack`` and the collect walk for every group.  Returns (eps2,
+    pmass8 [n_tot, 8], tgt8 [G, B, 8], gidx [G, B], W, walk)."""
+    eps2, pmass8, tgt8, gidx, W = _pack(tree, g_soft, cfg, n)
     if cfg.refine_levels and tree.refine_tables is None:
         raise ValueError(
             "cfg.refine_levels > 0 but the tree was built without "
             "refinement (pass refine_levels/refine_cap/refine_threshold "
             "to build_octree)")
-    walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
-                          cfg, W, tgt8[..., :3], tgt8[..., 3], gidx)
+    walk = _group_collect(tree, pmass8.shape[0], cfg.cell_w2s(bounds.width),
+                          theta2, cfg, W, tgt8[..., :3], tgt8[..., 3], gidx,
+                          sliding=_sliding_ok(cfg, W))
     return eps2, pmass8, tgt8, gidx, W, walk
 
 
@@ -1241,32 +1362,89 @@ def _walk_counters(walk) -> dict:
     }
 
 
+class WalkTopo(NamedTuple):
+    """The collect walk's decisions, none of its values
+    (``nbody_tpu/ops/traversal.py:1970``): the accepted-node rows (their
+    (cell id, level) in slots 6/7), the fallback rows, the near particle
+    lists and the window coverage.  Over a frozen binning
+    (``refresh_octree``) every index stays valid across steps, so
+    ``traverse_tree_cached`` can skip the walk and evaluate the same
+    interactions at the current positions."""
+
+    mono: torch.Tensor  # [G, accept_cap, 8] accepted-node rows
+    fb: torch.Tensor  # [G, fb_cap, 8] overflow-fallback node rows
+    pidx: torch.Tensor  # [G, near_particle_cap] int32 near sources
+    pvalid: torch.Tensor  # [G, near_particle_cap] bool
+    ntot: torch.Tensor  # [G] int32 near totals (stats)
+    wmask: torch.Tensor  # [G, W] bool window coverage
+    wstart: torch.Tensor  # [G] int32 window starts
+
+
+def empty_topo(n: int, cfg: BHConfig, dtype, device) -> WalkTopo:
+    """A zero ``WalkTopo`` of the shapes ``traverse_tree(return_topo=True)``
+    gives for ``n`` particles: the carry before the first full walk (every
+    row has zero mass, inert if evaluated)."""
+    block = cfg.group_size * cfg.chunk_groups
+    n_tot = n + (-n) % block
+    G = n_tot // cfg.group_size
+    W = min(cfg.window, n_tot)
+    P = cfg.near_particle_cap
+    f = dict(dtype=dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return WalkTopo(
+        mono=torch.zeros((G, cfg.accept_cap, 8), **f),
+        fb=torch.zeros((G, cfg.fb_cap, 8), **f),
+        pidx=torch.zeros((G, P), **i32),
+        pvalid=torch.zeros((G, P), dtype=torch.bool, device=device),
+        ntot=torch.zeros((G,), **i32),
+        wmask=torch.zeros((G, W), dtype=torch.bool, device=device),
+        wstart=torch.zeros((G,), **i32))
+
+
+def _fb_all_quad(tree, cfg: BHConfig):
+    """The quadrupole table the fallback eval reads (``fb_quad``), or
+    None for self-excluded monopoles."""
+    return tree.all_quad if cfg.multipole == "quad" and cfg.fb_quad else None
+
+
+def _unsort(acc, tree, cfg: BHConfig, n: int):
+    """Group-order accelerations [G, B, 3] -> [n, dim] in the original
+    particle order (``tree.order`` is a bijection)."""
+    acc_s = acc.reshape(-1, 3)[:n, :cfg.dim]
+    out = torch.empty_like(acc_s)
+    out[tree.order] = acc_s
+    return out
+
+
 def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
-                  mark=None):
+                  mark=None, return_topo: bool = False):
     """Group traversal + force over a built tree: collect walk -> slab
     assembly (window rows + near gather + multipole slab) -> one eval pass
     -> scatter back to the original particle order.
 
-    Returns (acc [n, 3] in original order, stats).  ``mark``, if given, is
+    Returns (acc [n, dim] in original order, stats), and the walk's
+    ``WalkTopo`` after them with ``return_topo``.  ``mark``, if given, is
     called with a phase name at each phase boundary (on-card timing)."""
+    if cfg.refine_levels and return_topo:
+        raise ValueError(
+            "walk-topology caching (walk_every > 1 / bh-lazy) does not "
+            "support refine_levels: refined slab rows have no "
+            "(level, cell id) address to re-gather by")
     mark = mark or _no_mark
     dtype = tree.pos_s.dtype
     mode = _resolve_eval_mode(cfg, tree.pos_s)
     eps2, pmass8, tgt8, gidx, W, walk = _walk(tree, bounds, theta2, g_soft,
                                               cfg, n)
     mark("walk")
-    acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
+    acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2,
+                      _fb_all_quad(tree, cfg), cfg.branch)
     mark("fb")
 
     pidx, pvalid, ntot = _near_lists(tree, walk, cfg)
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2, g, eps2,
         g_soft, cfg, W, mode, mark)
-
-    # un-permute to the original particle order (order is a bijection)
-    acc_s = acc.reshape(-1, 3)[:n]
-    out = torch.empty_like(acc_s)
-    out[tree.order] = acc_s
+    out = _unsort(acc, tree, cfg, n)
     mark("scatter")
     stats = {
         **_walk_counters(walk),
@@ -1280,7 +1458,174 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
         # could not materialize (they kept the unrefined path)
         stats["refine_near_totals"] = walk["refine_near_totals"]
         stats["refine_build_dropped"] = tree.refine_stats[1]
+    if return_topo:
+        return out, stats, WalkTopo(
+            mono=walk["mono"], fb=walk["fb"], pidx=pidx, pvalid=pvalid,
+            ntot=ntot, wmask=walk["wmask"], wstart=walk["wstart"])
     return out, stats
+
+
+def traverse_tree_cached(tree, topo: WalkTopo, theta2, g, g_soft,
+                         cfg: BHConfig, n: int, mark=None):
+    """Forces over a frozen walk topology (``nbody_tpu/ops/traversal.py:
+    2358``): no collect walk; every interaction the topology lists is
+    evaluated at the current positions.
+
+      * accepted and fallback rows re-gather fresh mass and COM (and, via
+        the refreshed ``all_quad``, quadrupoles) by their stored (level,
+        cell id) from the refreshed level tables; padding rows (cached
+        M = 0) stay inert, as their (0, 0) address would re-gather the
+        root;
+      * window, near and target rows read the refreshed ``pos_s`` /
+        ``mass_s`` in the frozen order;
+      * the fallback slab is evaluated here (it rides the walk otherwise).
+
+    ``tree`` must share the topology's binning (``refresh_octree``).  Only
+    the routing is stale: which cells are accepted, opened or near.
+    Returns (acc [n, dim], stats) with the walk counters at 0."""
+    if cfg.wide or cfg.near_sym:
+        raise ValueError("walk reuse supports neither wide mode nor "
+                         "near_sym")
+    mark = mark or _no_mark
+    mode = _resolve_eval_mode(cfg, tree.pos_s)
+    dtype = tree.pos_s.dtype
+    eps2, pmass8, tgt8, gidx, W = _pack(tree, g_soft, cfg, n)
+    flat = torch.cat(tree.level_table, dim=0)
+
+    def regather(valid, lvl, cid):
+        """Fresh node rows [.., 8] at (level, cell id) where ``valid``."""
+        at = _level_offsets(lvl.to(torch.int64), cfg.branch) \
+            + cid.to(torch.int64)
+        return flat[torch.where(valid, at, 0)]
+
+    # mono rows: (com, M, -1, level or -1, cell id, true level)
+    mvalid = topo.mono[..., 3] > 0
+    mrows = regather(mvalid, topo.mono[..., 7], topo.mono[..., 6])
+    mm = torch.where(mvalid, mrows[..., 0], 0.0)
+    mcom = mrows[..., 1:4] / torch.where(mm > 0, mm, 1.0)[..., None]
+    mono = torch.cat([mcom, mm[..., None], topo.mono[..., 4:]], dim=-1)
+    # fb rows: raw node rows + (level, cell id); the ranges are frozen, so
+    # the re-gathered row's range equals the cached one
+    fvalid = topo.fb[..., 0] > 0
+    frows = regather(fvalid, topo.fb[..., 6], topo.fb[..., 7])
+    fb = torch.cat([torch.where(fvalid[..., None], frows[..., :6], 0.0),
+                    topo.fb[..., 6:]], dim=-1)
+    mark("regather")
+    acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], fb, g, eps2,
+                      _fb_all_quad(tree, cfg), cfg.branch)
+    mark("fb")
+    walk = dict(mono=mono, wstart=topo.wstart, wmask=topo.wmask,
+                center=_group_center(tgt8[..., :3], tgt8[..., 3]))
+    acc, n_dual, slab_fill = _assemble_eval(
+        pmass8, tgt8, tree, walk, topo.pidx, topo.pvalid, acc_fb, theta2, g,
+        eps2, g_soft, cfg, W, mode, mark)
+    out = _unsort(acc, tree, cfg, n)
+    mark("scatter")
+    zero = torch.zeros((), dtype=torch.int64, device=out.device)
+    stats = {"accept_dropped": zero, "frontier_fallback": zero,
+             "near_fallback": zero, "fb_spill": zero,
+             "near_totals": topo.ntot, "dual_tiles": n_dual,
+             "window_cov": topo.wmask.to(dtype).mean(),
+             "slab_fill": slab_fill}
+    return out, stats
+
+
+#: host reads of a device value a step makes: the stateful paths read the
+#: moved fraction once a step to decide on the host what the JAX package's
+#: lax.cond decides on the device (changed under ``ops/work.py``'s LOCK)
+HOST_READS = {"moved_frac": 0}
+
+
+def reset_host_reads():
+    with LOCK:
+        for k in HOST_READS:
+            HOST_READS[k] = 0
+
+
+def _moved_fraction(tree, pos, mass, bounds, cfg: BHConfig,
+                    move_cells: float) -> float:
+    """The share of alive particles more than ``move_cells`` leaf cells
+    (beyond half a cell) from the centre of the cell they were binned into,
+    read back to the host (one counted sync).  ``pos`` and ``bounds`` are
+    in the grid frame."""
+    L = cfg.max_level
+    gb = grid_bounds(bounds, L)
+    pos_s = pos[tree.order][:, :cfg.dim]
+    alive_s = mass[tree.order] > 0
+    centers = morton.cell_centers_from_codes(
+        torch.clamp(tree.code_s, max=cfg.branch ** L - 1), gb, L, cfg.dim)
+    cell_w = gb.width / (1 << L)
+    moved = ((pos_s - centers).abs().amax(dim=-1)
+             > (0.5 + move_cells) * cell_w)
+    counts = torch.stack([(moved & alive_s).sum(), alive_s.sum()])
+    with LOCK:
+        HOST_READS["moved_frac"] += 1
+    n_moved, n_alive = counts.tolist()
+    return n_moved / max(n_alive, 1)
+
+
+def _build_args(cfg: BHConfig) -> dict:
+    """``build_octree``'s arguments for ``cfg``'s unrefined tree."""
+    return dict(dim=cfg.dim, quad=cfg.multipole == "quad",
+                quad_leaf=cfg.quad_leaf)
+
+
+def bh_accel_reuse(pos, mass, bounds, theta2, g, g_soft, tree,
+                   topo: WalkTopo, age: int, cfg: BHConfig = None,
+                   walk_every: int = 2, rebuild_frac: float = 0.5,
+                   move_cells: float = 1.0, mark=None):
+    """Barnes-Hut forces with walk reuse (``nbody_tpu/ops/traversal.py:
+    2506``): a build and a full walk every ``walk_every`` steps and
+    whenever more than ``rebuild_frac`` of the alive particles strayed
+    more than ``move_cells`` leaf cells from their frozen cell; in between
+    a frozen-binning refresh and the cached-topology eval.
+
+    ``age`` is a host int, so the cadence costs no sync; the moved
+    fraction is read once a step (``HOST_READS``).  Returns (acc, stats,
+    tree, topo, age_next): thread the last three as the step's carry."""
+    cfg = BHConfig() if cfg is None else cfg
+    pos = pos - bounds.center
+    bounds = bounds.centered()
+    frac = _moved_fraction(tree, pos, mass, bounds, cfg, move_cells)
+    do_full = age % walk_every == 0 or frac > rebuild_frac
+    if do_full:
+        tree = build_octree(pos, mass, bounds, cfg.max_level, mark=mark,
+                            **_build_args(cfg))
+        acc, stats, topo = traverse_tree(tree, bounds, theta2, g, g_soft,
+                                         cfg, pos.shape[0], mark=mark,
+                                         return_topo=True)
+    else:
+        tree = refresh_octree(tree, pos, mass, quad=cfg.multipole == "quad",
+                              quad_leaf=cfg.quad_leaf)
+        acc, stats = traverse_tree_cached(tree, topo, theta2, g, g_soft, cfg,
+                                          pos.shape[0], mark=mark)
+    stats = dict(stats, full_walk=int(do_full), moved_frac=frac)
+    return acc, stats, tree, topo, 1 if do_full else age + 1
+
+
+def bh_accel_lazy(pos, mass, bounds, theta2, g, g_soft, tree,
+                  cfg: BHConfig = None, rebuild_frac: float = 0.3,
+                  move_cells: float = 1.0, mark=None):
+    """Barnes-Hut forces over the carried tree's binning, refreshed from
+    the current positions, with a rebuild (the sort) only when more than
+    ``rebuild_frac`` of the alive particles strayed more than
+    ``move_cells`` leaf cells (``nbody_tpu/ops/traversal.py:2566``).  The
+    walk runs every step.  Returns (acc, stats, new_tree)."""
+    cfg = BHConfig() if cfg is None else cfg
+    pos = pos - bounds.center
+    bounds = bounds.centered()
+    frac = _moved_fraction(tree, pos, mass, bounds, cfg, move_cells)
+    rebuilt = frac > rebuild_frac
+    if rebuilt:
+        tree = build_octree(pos, mass, bounds, cfg.max_level, mark=mark,
+                            **_build_args(cfg))
+    else:
+        tree = refresh_octree(tree, pos, mass, quad=cfg.multipole == "quad",
+                              quad_leaf=cfg.quad_leaf)
+    acc, stats = traverse_tree(tree, bounds, theta2, g, g_soft, cfg,
+                               pos.shape[0], mark=mark)
+    stats = dict(stats, rebuilt=int(rebuilt), moved_frac=frac)
+    return acc, stats, tree
 
 
 # elements of one [C, T, S] tile of the potential's pair pass
@@ -1331,7 +1676,8 @@ def traverse_tree_phi(tree, bounds, theta2, g, g_soft, cfg: BHConfig,
     phi_fb = _fb_phi(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2)
     pidx, pvalid, _ = _near_lists(tree, walk, cfg)
     nrows = _near_rows(pmass8, pidx, pvalid)
-    wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W)
+    wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W, cfg,
+                         _sliding_ok(cfg, W))
     slab = torch.cat([wrows, nrows, walk["mono"]], dim=1)
     phi = _phi_slab_eval(slab, tgt8, g, eps2) + phi_fb
     u = 0.5 * (tgt8[..., 3] * phi).sum()
@@ -1348,7 +1694,7 @@ def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
              mark=None):
     """Full Barnes-Hut acceleration: build + traverse + scatter back.
 
-    pos [N, 3], mass [N] (zero for dead) -> (acc [N, 3], stats).  The
+    pos [N, D], mass [N] (zero for dead) -> (acc [N, D], stats).  The
     pipeline runs in the grid frame (pos - bounds.center): acceleration is
     translation-invariant, and recentring bounds every accumulation by the
     domain half-width."""
@@ -1356,10 +1702,8 @@ def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
     _resolve_eval_mode(cfg, pos)  # refuse a run the kernels cannot take
     pos_c = pos - bounds.center
     b0 = bounds.centered()
-    tree = build_octree(pos_c, mass, b0, cfg.max_level,
-                        quad=cfg.multipole == "quad",
-                        quad_leaf=cfg.quad_leaf, mark=mark,
-                        **_refine_args(cfg))
+    tree = build_octree(pos_c, mass, b0, cfg.max_level, mark=mark,
+                        **_build_args(cfg), **_refine_args(cfg))
     return traverse_tree(tree, b0, theta2, g, g_soft, cfg, pos.shape[0],
                          mark=mark)
 
@@ -1373,6 +1717,6 @@ def bh_potential(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None):
     cfg = BHConfig() if cfg is None else cfg
     pos_c = pos - bounds.center
     b0 = bounds.centered()
-    tree = build_octree(pos_c, mass, b0, cfg.max_level, quad=False,
-                        **_refine_args(cfg))
+    tree = build_octree(pos_c, mass, b0, cfg.max_level, dim=cfg.dim,
+                        quad=False, **_refine_args(cfg))
     return traverse_tree_phi(tree, b0, theta2, g, g_soft, cfg, pos.shape[0])

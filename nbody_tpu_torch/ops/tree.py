@@ -1,12 +1,15 @@
 """Linear octree build: Morton sort + dense level pyramid (the counterpart
-of ``nbody_tpu/ops/tree.py``, 3D path), with optional density-adaptive
-refined levels below the leaf grid (``refine_levels > 0``).
+of ``nbody_tpu/ops/tree.py``), with optional density-adaptive refined
+levels below the leaf grid (``refine_levels > 0``), the frozen-binning
+refresh of the lazy and walk-reuse engines (``refresh_octree``) and 2D
+quadtrees (``dim=2``).
 
 The octree is a dense pyramid of per-level cell statistics over the
 2^L x 2^L x 2^L Morton grid: level l has 8^l cells and cell c's children are
-cells 8c..8c+7 of level l+1.  The build is (1) Morton-encode and stably sort
-the particles, (2) leaf statistics from double-float prefix sums over the
-sorted particles, (3) reshape-sums up the pyramid.  Mass-weighted position
+cells 8c..8c+7 of level l+1 (a quadtree: 4^l cells, 4 children, the stored
+coordinates kept 3-wide with z = 0).  The build is (1) Morton-encode and
+stably sort the particles, (2) leaf statistics from double-float prefix
+sums over the sorted particles, (3) reshape-sums up the pyramid.  Mass-weighted position
 sums (not COMs) are stored, so empty cells are exact zeros and a parent is a
 plain sum of its children.
 
@@ -19,15 +22,13 @@ children in a fixed order.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from nbody_tpu_torch.ops import morton
-
-BRANCH = 8  # children per cell (octree)
-
 
 @dataclass(frozen=True)
 class LinearOctree:
@@ -52,8 +53,8 @@ class LinearOctree:
     #: (guarded by _check_range_dtype)
     level_table: Tuple[torch.Tensor, ...]
     #: all levels' raw second moments about the grid origin, concatenated
-    #: (level l starts at row level_offset(l)): (Sxx, Syy, Szz, Sxy, Sxz,
-    #: Syz, 0, 0).  None when built with quad=False.
+    #: (level l starts at row (branch^l - 1) / (branch - 1)): (Sxx, Syy,
+    #: Szz, Sxy, Sxz, Syz, 0, 0).  None when built with quad=False.
     all_quad: Optional[torch.Tensor]
     #: density-adaptive refinement (built with refine_levels > 0, else all
     #: None).  refine_tables[r] holds the children of the level-(L + r)
@@ -77,19 +78,20 @@ class LinearOctree:
     def max_level(self) -> int:
         return len(self.level_mass) - 1
 
+    @property
+    def branch(self) -> int:
+        """Children per cell: 8 for octrees (3D), 4 for quadtrees (2D)."""
+        return self.level_mass[1].shape[0]
 
-def level_offset(level: int, branch: int = BRANCH) -> int:
-    """Row offset of ``level``'s cells in the concatenated all-level
-    quadrupole table."""
-    return ((branch ** level) - 1) // (branch - 1)
+    @property
+    def dim(self) -> int:
+        return self.branch.bit_length() - 1
 
 
 def grid_bounds(bounds, max_level: int):
     """Tree grid = domain box shifted by half a leaf cell in every axis, so
     the domain's center planes (the disc lies exactly on z = 0) are never
     cell boundaries at any level.  The cull still uses the unshifted box."""
-    import dataclasses
-
     cell = bounds.width / (1 << max_level)
     return dataclasses.replace(bounds, center=bounds.center + cell * 0.5)
 
@@ -103,7 +105,7 @@ def _quad_moments(pos_s, mass_s):
                         w[:, 0] * pos_s[:, 2], w[:, 1] * pos_s[:, 2]], dim=1)
 
 
-def _sum_children(x, branch: int = BRANCH):
+def _sum_children(x, branch: int):
     """[C * branch, ...] -> [C, ...]: each parent's children added in the
     fixed order 0..branch-1 (the same order on every device)."""
     x = x.reshape(-1, branch, *x.shape[1:])
@@ -164,27 +166,30 @@ def _range_sums_from_table(p, starts, ends, k: int):
     return d[:, :k] + d[:, k:2 * k]
 
 
-def _build_quad(pos_s, mass_s, leaf_starts, max_level: int):
-    """Raw second moments of the level-(L-1) cells (the leaf level is not
-    built: accepted leaf cells evaluate as monopoles, ``quad_leaf=False``).
-    The JAX package segment-sums into code // 8 (``tree.py:200``); here the
-    same sums are prefix-range differences over every 8th leaf boundary —
-    the variant that file keeps at ``tree.py:188-195``, ordered and free of
-    float atomics."""
+def _build_quad(pos_s, mass_s, leaf_starts, max_level: int, branch: int,
+                quad_leaf: bool):
+    """Raw second moments of the leaf cells (``quad_leaf=True``) or of the
+    level-(L-1) cells (the leaf level is not built: accepted leaf cells
+    evaluate as monopoles).  The JAX package segment-sums into code or
+    code // branch (``tree.py:160-208``); here the same sums are
+    prefix-range differences over every leaf boundary or every branch-th
+    one (the variant that file keeps at ``tree.py:188-195``), ordered and
+    free of float atomics."""
     m6 = _quad_moments(pos_s, mass_s)
-    starts = leaf_starts[::BRANCH]
+    stride = 1 if quad_leaf else branch
+    starts = leaf_starts[::stride]
     q = torch.cat([_prefix_range_sums(m6[:, :3], starts),
                    _prefix_range_sums(m6[:, 3:], starts)], dim=1)
-    return q, max_level - 1
+    return q, max_level if quad_leaf else max_level - 1
 
 
-def _quad_pyramid(base_quad, top_level: int, ftype):
+def _quad_pyramid(base_quad, top_level: int, branch: int, ftype):
     """Aggregate second moments from the ``top_level`` cells up the pyramid
     and concatenate levels 0..top_level into one [rows, 8] table (root
     first)."""
     levels = [base_quad]
     for _ in range(top_level):
-        levels.append(_sum_children(levels[-1]))
+        levels.append(_sum_children(levels[-1], branch))
     levels.reverse()
     flat = torch.cat([q.to(ftype) for q in levels], dim=0)
     pad = torch.zeros((flat.shape[0], 2), dtype=ftype, device=flat.device)
@@ -224,7 +229,7 @@ def _slot_map(keys, valid, size: int, n_slots: int):
 
 def _build_refined(p, deep_code_s, leaf_counts, max_level: int,
                    refine_levels: int, refine_cap: int, threshold: int,
-                   ftype):
+                   branch: int, dim: int, ftype):
     """Density-adaptive levels below the dense pyramid's leaf grid
     (``nbody_tpu/ops/tree.py:294-393``).
 
@@ -240,12 +245,12 @@ def _build_refined(p, deep_code_s, leaf_counts, max_level: int,
 
     Returns (refine_tables, refine_slot_leaf, refine_child_slot,
     refine_stats), as the LinearOctree fields."""
-    n_leaf = BRANCH ** max_level
+    n_leaf = branch ** max_level
     l_deep = max_level + refine_levels
-    rows_per = refine_cap * BRANCH
+    rows_per = refine_cap * branch
     dev = p.device
     i32 = dict(dtype=torch.int32, device=dev)
-    kids = torch.arange(BRANCH, **i32)
+    kids = torch.arange(branch, **i32)
 
     flagged = leaf_counts > threshold
     p_codes, p_valid, dropped = _compact(torch.arange(n_leaf, **i32),
@@ -256,10 +261,10 @@ def _build_refined(p, deep_code_s, leaf_counts, max_level: int,
 
     tables, child_maps = [], []
     for r in range(1, refine_levels + 1):
-        child_codes = (p_codes[:, None] * BRANCH + kids).reshape(rows_per)
-        child_valid = p_valid.repeat_interleave(BRANCH)
-        # (code + 1) << shift reaches 8^l_deep = 2^30 at depth 10: int32
-        shift = 3 * (l_deep - (max_level + r))
+        child_codes = (p_codes[:, None] * branch + kids).reshape(rows_per)
+        child_valid = p_valid.repeat_interleave(branch)
+        # (code + 1) << shift reaches 2^30 at the deepest level: int32
+        shift = dim * (l_deep - (max_level + r))
         lo = torch.where(child_valid, child_codes << shift, 0)
         hi = torch.where(child_valid, (child_codes + 1) << shift, 0)
         bounds_ = torch.searchsorted(deep_code_s, torch.cat([lo, hi]),
@@ -287,6 +292,18 @@ def _build_refined(p, deep_code_s, leaf_counts, max_level: int,
     return tuple(tables), slot_leaf, tuple(child_maps), stats
 
 
+def _leaf_stats(pos_s, mass_s, leaf_starts):
+    """Leaf (mass, mass-weighted position) of the sorted particles as
+    double-float range differences over ``leaf_starts``.  Both of the JAX
+    package's leaf branches (prefix sums when 4N >= 8^L, sorted
+    segment-sums otherwise) become this path.  Returns (the prefix table,
+    which the refined build reuses, leaf_mass, leaf_mpos)."""
+    table = _build_prefix_table(
+        torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
+    leaf = _range_sums_from_table(table, leaf_starts[:-1], leaf_starts[1:], 4)
+    return table, leaf[:, 0], leaf[:, 1:4]
+
+
 def _check_range_dtype(n: int, ftype) -> None:
     """Packed node rows store particle-range starts/ends in the position
     dtype; counts beyond its mantissa (2^24 in f32, 2^53 in f64) would
@@ -307,16 +324,24 @@ def decode_ranges(row):
     return row[..., 4].to(torch.int32), row[..., 5].to(torch.int32)
 
 
+def _level_stats(leaf_mass, leaf_mpos, max_level: int, branch: int):
+    """Leaf (mass, mass-weighted position) summed up the dense pyramid:
+    [C, 4] rows a level, root first."""
+    stats = [torch.cat([leaf_mass[:, None], leaf_mpos], dim=1)]  # [C, 4]
+    for _ in range(max_level):
+        stats.append(_sum_children(stats[-1], branch))
+    stats.reverse()
+    return stats
+
+
 def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
-                    ftype):
+                    branch: int, ftype):
     """Aggregate leaf statistics up the dense pyramid and pack the per-level
     node tables.  Returns (level_mass, level_mpos, level_table)."""
-    stats = [torch.cat([leaf_mass[:, None], leaf_mpos], dim=1)]  # [C, 4]
+    stats = _level_stats(leaf_mass, leaf_mpos, max_level, branch)
     counts = [leaf_counts]
     for _ in range(max_level):
-        stats.append(_sum_children(stats[-1]))
-        counts.append(counts[-1].reshape(-1, BRANCH).sum(dim=1))
-    stats.reverse()
+        counts.append(counts[-1].reshape(-1, branch).sum(dim=1))
     counts.reverse()
 
     level_table = []
@@ -332,13 +357,19 @@ def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
             tuple(level_table))
 
 
-def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
-                 quad_leaf: bool = False, refine_levels: int = 0,
-                 refine_cap: int = 8192, refine_threshold: int = 512,
-                 mark=None) -> LinearOctree:
-    """pos [N, 3], mass [N] (dead particles already at mass 0) -> the
-    octree.  ``bounds`` is the domain box; the grid is its half-leaf-shifted
-    version (grid_bounds).
+def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
+                 quad: bool = False, quad_leaf: bool = False,
+                 refine_levels: int = 0, refine_cap: int = 8192,
+                 refine_threshold: int = 512, mark=None) -> LinearOctree:
+    """pos [N, D], mass [N] (dead particles already at mass 0) -> the
+    octree (``nbody_tpu/ops/tree.py:507``).  ``bounds`` is the domain box;
+    the grid is its half-leaf-shifted version (grid_bounds).
+
+    ``dim=2`` builds a quadtree (2D Morton codes, 4 children a cell); the
+    stored coordinates stay 3-wide with z = 0, so the walk and the kernels
+    see 3D rows.  ``quad_leaf=True`` builds the leaf level's second moments
+    too (the JAX package's default; this package's is False, the engines'
+    setting).
 
     ``refine_levels > 0`` adds up to that many density-adaptive levels below
     the leaf grid for cells holding more than ``refine_threshold``
@@ -350,34 +381,31 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
     (on-card timing)."""
     n = pos.shape[0]
     _check_range_dtype(n, pos.dtype)
-    if pos.shape[1] != 3:
-        raise NotImplementedError(
-            "2D (quadtree) states on the bh engines are not yet ported to "
-            "nbody_tpu_torch (ROADMAP.md, queue 1, item 18)")
-    if quad and quad_leaf:
-        raise NotImplementedError(
-            "quad_leaf=True (leaf-level quadrupoles) is not yet ported to "
-            "nbody_tpu_torch (ROADMAP.md, queue 1, item 18)")
+    branch = 1 << dim
     l_deep = max_level + refine_levels
-    if l_deep > morton.MAX_LEVEL_3D:
+    limit = morton.MAX_LEVEL_3D if dim == 3 else morton.MAX_LEVEL_2D
+    if l_deep > limit:
         raise ValueError(
-            f"max_level + refine_levels = {l_deep} exceeds the 3D Morton "
-            f"code depth limit ({morton.MAX_LEVEL_3D})")
-    n_leaf = BRANCH ** max_level
+            f"max_level + refine_levels = {l_deep} exceeds the {dim}D "
+            f"Morton code depth limit ({limit})")
+    n_leaf = branch ** max_level
     gb = grid_bounds(bounds, max_level)
-    codes = morton.cell_codes(pos, gb, l_deep)
+    codes = morton.cell_codes(pos[:, :dim], gb, l_deep)
     # dead particles get the sentinel: they sort to the tail and match no
     # cell range
-    codes = torch.where(mass > 0, codes, BRANCH ** l_deep)
+    codes = torch.where(mass > 0, codes, branch ** l_deep)
+    if dim == 2:
+        pos = torch.cat([pos, pos.new_zeros((n, 1))], dim=1)
 
     # a stable sort is the JAX package's payload-carrying lax.sort with an
     # iota payload: the same permutation
     deep_code_s, order = torch.sort(codes, stable=True)
     pos_s = pos[order]
     mass_s = mass[order]
-    # leaf codes are the deep codes' prefixes (the sentinel 8^l_deep maps
-    # to 8^L); with refine_levels == 0 this is the identity
-    code_s = deep_code_s >> (3 * refine_levels)
+    # leaf codes are the deep codes' prefixes (the sentinel
+    # branch^l_deep maps to branch^L); with refine_levels == 0 this is the
+    # identity
+    code_s = deep_code_s >> (dim * refine_levels)
 
     # leaf cell c holds the sorted slots [start(c), start(c + 1)), start(c)
     # = #codes < c; a search needs no host sync, where torch.bincount reads
@@ -386,21 +414,16 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
         code_s, torch.arange(n_leaf + 1, dtype=torch.int32,
                              device=pos.device)).to(torch.int32)
     leaf_counts = leaf_starts[1:] - leaf_starts[:-1]
-    # both of the JAX package's leaf branches (prefix sums when 4N >= 8^L,
-    # sorted segment-sums otherwise) become the prefix path here; the
-    # refined build reuses the table
-    table = _build_prefix_table(
-        torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
-    leaf = _range_sums_from_table(table, leaf_starts[:-1], leaf_starts[1:], 4)
-    leaf_mass, leaf_mpos = leaf[:, 0], leaf[:, 1:4]
+    table, leaf_mass, leaf_mpos = _leaf_stats(pos_s, mass_s, leaf_starts)
 
     level_mass, level_mpos, level_table = _pyramid_tables(
-        leaf_mass, leaf_mpos, leaf_counts, max_level, pos.dtype)
+        leaf_mass, leaf_mpos, leaf_counts, max_level, branch, pos.dtype)
 
     all_quad = None
     if quad:
-        q, top = _build_quad(pos_s, mass_s, leaf_starts, max_level)
-        all_quad = _quad_pyramid(q, top, pos.dtype)
+        q, top = _build_quad(pos_s, mass_s, leaf_starts, max_level, branch,
+                             quad_leaf)
+        all_quad = _quad_pyramid(q, top, branch, pos.dtype)
 
     if mark is not None:
         mark("build")
@@ -408,7 +431,8 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
     if refine_levels > 0:
         tables, slot_leaf, child_maps, rstats = _build_refined(
             table, deep_code_s, leaf_counts, max_level,
-            refine_levels, refine_cap, refine_threshold, pos.dtype)
+            refine_levels, refine_cap, refine_threshold, branch, dim,
+            pos.dtype)
         refine = dict(refine_tables=tables, refine_slot_leaf=slot_leaf,
                       refine_child_slot=child_maps, refine_stats=rstats)
         if mark is not None:
@@ -421,9 +445,45 @@ def build_octree(pos, mass, bounds, max_level: int = 7, quad: bool = False,
                         **refine)
 
 
+def refresh_octree(tree: LinearOctree, pos, mass, quad: bool = None,
+                   quad_leaf: bool = False) -> LinearOctree:
+    """Node statistics from the current positions over the frozen binning
+    of ``tree`` (sort order, cell assignment, ranges): the lazy engine's
+    and walk reuse's refresh (``nbody_tpu/ops/tree.py:782``).  No sort;
+    particles that moved stay in their old cells until a rebuild, and dead
+    particles inside stale ranges add zero mass.
+
+    The leaf sums are the build's own double-float range differences over
+    the frozen ``leaf_starts`` (the JAX package segment-sums by leaf code),
+    so a refresh at the positions of the build equals the build bit for
+    bit.  ``quad=None`` keeps whether the tree has a quadrupole table."""
+    if pos.shape[1] < tree.pos_s.shape[1]:  # 2D state, 3-wide tree rows
+        pos = torch.cat([pos, pos.new_zeros((pos.shape[0], 1))], dim=1)
+    pos_s = pos[tree.order]
+    mass_s = mass[tree.order]
+    _table, leaf_mass, leaf_mpos = _leaf_stats(pos_s, mass_s,
+                                               tree.leaf_starts)
+    stats = _level_stats(leaf_mass, leaf_mpos, tree.max_level, tree.branch)
+    ftype = tree.level_table[0].dtype
+    level_table = tuple(
+        torch.cat([st.to(ftype), old[:, 4:]], dim=1)  # frozen ranges
+        for st, old in zip(stats, tree.level_table))
+    want_quad = tree.all_quad is not None if quad is None else quad
+    all_quad = None
+    if want_quad:
+        q, top = _build_quad(pos_s, mass_s, tree.leaf_starts, tree.max_level,
+                             tree.branch, quad_leaf)
+        all_quad = _quad_pyramid(q, top, tree.branch, pos_s.dtype)
+    return dataclasses.replace(
+        tree, pos_s=pos_s, mass_s=mass_s,
+        level_mass=tuple(st[:, 0] for st in stats),
+        level_mpos=tuple(st[:, 1:4] for st in stats),
+        level_table=level_table, all_quad=all_quad)
+
+
 def cell_ranges(tree: LinearOctree, cell_ids, level: int):
     """Sorted-particle ranges [start, end) for level-``level`` cell ids."""
-    shift = 3 * (tree.max_level - level)
+    shift = tree.dim * (tree.max_level - level)
     cell_ids = cell_ids.long()
     return (tree.leaf_starts[cell_ids << shift],
             tree.leaf_starts[(cell_ids + 1) << shift])
@@ -436,11 +496,11 @@ def leaf_ranges(tree: LinearOctree, cell_ids):
     return start, end
 
 
-def _boxes(ids, gb, level: int):
-    """(min [K, 3], max [K, 3], K) numpy boxes of level-``level`` cell ids
-    on the grid ``gb``, as the JAX package computes them: centers in the
-    grid's dtype, then the half width as a host float."""
-    c = morton.cell_centers_from_codes(ids, gb, level).cpu().numpy()
+def _boxes(ids, gb, level: int, dim: int):
+    """(min [K, dim], max [K, dim], K) numpy boxes of level-``level`` cell
+    ids on the grid ``gb``, as the JAX package computes them: centers in
+    the grid's dtype, then the half width as a host float."""
+    c = morton.cell_centers_from_codes(ids, gb, level, dim).cpu().numpy()
     half = float(gb.width) / (1 << level) / 2.0
     return c - half, c + half, int(ids.shape[0])
 
@@ -462,25 +522,25 @@ def tree_boxes(tree: LinearOctree, bounds, max_nodes_per_level: int = 4096):
     out = []
     for l, m in enumerate(tree.level_mass):
         occ = torch.nonzero(m > 0).squeeze(1)[:max_nodes_per_level]
-        out.append(_boxes(occ, gb, l))
+        out.append(_boxes(occ, gb, l, tree.dim))
     if tree.refine_tables is None:
         return out
 
-    L = tree.max_level
+    L, branch = tree.max_level, tree.branch
     slot_leaf = tree.refine_slot_leaf.long()
     dev = slot_leaf.device
-    cap = tree.refine_tables[0].shape[0] // BRANCH
+    cap = tree.refine_tables[0].shape[0] // branch
     # parent slot -> parent cell code (-1: an empty slot), level by level
     parent_code = torch.full((cap,), -1, dtype=torch.int64, device=dev)
     flagged = torch.nonzero(slot_leaf >= 0).squeeze(1)
     parent_code[slot_leaf[flagged]] = flagged
     for r, table in enumerate(tree.refine_tables, start=1):
         j = torch.arange(table.shape[0], device=dev)
-        parent = parent_code[j // BRANCH]
-        codes = parent * BRANCH + j % BRANCH
+        parent = parent_code[j // branch]
+        codes = parent * branch + j % branch
         ok = (table[:, 0] > 0) & (parent >= 0)
         occ = torch.nonzero(ok).squeeze(1)[:max_nodes_per_level]
-        out.append(_boxes(codes[occ], gb, L + r))
+        out.append(_boxes(codes[occ], gb, L + r, tree.dim))
         if r <= len(tree.refine_child_slot):
             child_slot = tree.refine_child_slot[r - 1].long()
             rows = torch.nonzero((child_slot >= 0) & (codes >= 0)).squeeze(1)

@@ -6,8 +6,9 @@ the port never imports jax.  ``tests/test_torch_scenes.py`` holds every scene
 bit-equal to the JAX package's."""
 
 from nbody_tpu_torch.scenes.disc import self_gravitating_disc
-from nbody_tpu_torch.scenes.extras import (disc_bulge, hernquist_sphere,
-                                           plummer_sphere, uniform_cube)
+from nbody_tpu_torch.scenes.extras import (disc_2d, disc_bulge,
+                                           hernquist_sphere, plummer_sphere,
+                                           uniform_cube)
 
 SCENES = {
     "disc": self_gravitating_disc,
@@ -18,4 +19,4 @@ SCENES = {
 }
 
 __all__ = ["self_gravitating_disc", "plummer_sphere", "uniform_cube",
-           "hernquist_sphere", "disc_bulge", "SCENES"]
+           "hernquist_sphere", "disc_bulge", "disc_2d", "SCENES"]

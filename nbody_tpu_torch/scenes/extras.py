@@ -95,3 +95,21 @@ def disc_bulge(n: int, *, bulge_frac: float = 0.25, bulge_scale: float = 0.4,
     vel = np.concatenate([np.asarray(dvel), bvel[:nb]])
     mass = np.concatenate([np.asarray(dmass), bmass[:nb]])
     return pos, vel, mass
+
+
+def disc_2d(n: int, seed: int = 0):
+    """A flat disc with a central star in two dimensions (a copy of the
+    generator of ``tests/test_bh_2d.py:21-31``, the JAX package's 2D
+    quadtree scene): radii 1-4 uniform in area, circular velocities about
+    the unit-mass star at the origin, the other n - 1 particles sharing a
+    mass of 0.2.  Not a CLI scene: the CLI's scenes are 3D."""
+    rng = np.random.default_rng(seed)
+    r = 1.0 + 3.0 * np.sqrt(rng.random(n))
+    phi = rng.random(n) * 2 * np.pi
+    pos = np.stack([r * np.cos(phi), r * np.sin(phi)], axis=1)
+    v = np.sqrt(1.0 / r)
+    vel = np.stack([v * np.sin(phi), -v * np.cos(phi)], axis=1)
+    mass = np.concatenate([[1.0], np.full(n - 1, 0.2 / n)])
+    pos[0] = 0.0
+    vel[0] = 0.0
+    return pos, vel, mass

@@ -101,19 +101,25 @@ def test_set_settings_live():
                                 dict(engine="bh", engine_options=dict(
                                     sliding_window=True))])
 def test_unported_options_raise(kw):
-    """Options of paths not ported yet raise.  profile='adaptive' (ROADMAP
-    item 15) is ported: without max_level / refine_levels it resolves the
-    scene's stack as the JAX package does (the 51-particle disc: mid-N)."""
+    """These options are all ported now (ROADMAP items 15 and 16).
+    profile='adaptive' without max_level / refine_levels resolves the
+    scene's stack as the JAX package does (the 51-particle disc: mid-N);
+    walk_every > 1 and bh-lazy make the engine stateful, as in the JAX
+    package; each runs two steps on the CPU and keeps every particle."""
+    sim = make(50, **kw)
     if kw.get("engine_options") == dict(profile="adaptive"):
         from nbody_tpu.ops.traversal import ADAPTIVE_MIDN_OVERRIDES
 
-        sim = make(50, **kw)
         assert sim.engine_options == dict(profile="adaptive",
                                           **ADAPTIVE_MIDN_OVERRIDES)
         assert "refine_levels=4" in sim.engine.description
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make(50, **kw)
+    stateful = kw["engine"] == "bh-lazy" or "walk_every" in kw.get(
+        "engine_options", {})
+    assert sim.engine.stateful == stateful
+    sim.run(2)
+    assert sim.n_alive == 51
+    assert np.isfinite(sim.get_points()[2]).all()
 
 
 def test_auto_engine():
@@ -137,12 +143,13 @@ def test_unknown_device_and_engine():
                                   ["--adaptive"],
                                   ["--refine", "2"], ["--walk-every", "3"]])
 def test_cli_unported_flags_exit(flag):
-    """Flags of paths not ported yet exit naming the path.  --adaptive and
-    --refine (ROADMAP item 15) are ported: on the default engine 'auto'
-    they exit with the JAX package's message, and on a bh engine they run
-    2 steps of a small Plummer sphere on the CPU."""
+    """The flag of the path not ported yet (--devices, item 17) exits
+    naming the path.  --adaptive, --refine (item 15) and --walk-every
+    (item 16) are ported: on the default engine 'auto' they exit with the
+    JAX package's message, and on a bh engine they run 2 steps of a small
+    Plummer sphere on the CPU."""
     argv = ["-n", "10", "--steps", "1", "--cpu", *flag]
-    if "--adaptive" not in flag and "--refine" not in flag:
+    if "--devices" in flag:
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv)
         return
@@ -200,12 +207,14 @@ def test_bh_engines_and_their_limits():
     assert "max_level=8" in get_engine("bh-deep").description
     assert "window_pad=2048" in get_engine(
         "bh", profile="accurate").description
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_engine("bh", walk_every=2)
-    flat = Simulation(np.zeros((50, 2)), np.zeros((50, 2)), np.ones(50),
-                      engine="bh", bounds_center=(0.0, 0.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        flat.run(1)
+    assert get_engine("bh", walk_every=2).stateful
+    assert not get_engine("bh").stateful
+    rng = np.random.default_rng(0)
+    flat = Simulation(rng.uniform(-3, 3, (50, 2)), np.zeros((50, 2)),
+                      np.ones(50), engine="bh", bounds_center=(0.0, 0.0),
+                      device="cpu")
+    flat.run(1)
+    assert flat.state.pos.shape == (128, 2) and flat.n_alive == 50
 
 
 @pytest.mark.parametrize("compensated", [False, True])

@@ -18,7 +18,8 @@ from torch_parity import MATMUL_TOL, disc, rel_err
 def test_brute_force_matches_jax(fn, kill):
     _, params, pos, m, _ = disc(500, 512, kill)
     ref = getattr(jbf, fn)(pos.numpy(), m.numpy(), params)
-    got = getattr(bf, fn)(pos, m, SimParams.create(dt=3e-2, g_soft=0.02))
+    got = getattr(bf, fn)(pos, m, SimParams.create(dt=3e-2, g_soft=0.02,
+                                                   device="cpu"))
     assert rel_err(got, ref) < MATMUL_TOL
 
 
@@ -40,7 +41,7 @@ def test_force_tiled_off_center_box(g_soft):
     jp = JaxParams.create(g=0.9, g_soft=g_soft, bounds_center=center,
                           bounds_width=8.0, dtype=jnp.float32)
     tp = SimParams.create(g=0.9, g_soft=g_soft, bounds_center=center,
-                          bounds_width=8.0)
+                          bounds_width=8.0, device="cpu")
     ref = np.asarray(jbf.force_dense(jnp.asarray(pos), jnp.asarray(m), jp))
     got = bf.force_tiled(torch.from_numpy(pos), torch.from_numpy(m), tp,
                          tile=128)
@@ -57,7 +58,7 @@ def test_brute_force_2d():
     jp = JaxParams.create(g_soft=0.05, bounds_center=(0.0, 0.0),
                           bounds_width=20.0, dtype=jnp.float32)
     tp = SimParams.create(g_soft=0.05, bounds_center=(0.0, 0.0),
-                          bounds_width=20.0)
+                          bounds_width=20.0, device="cpu")
     ref = jbf.force_tiled(jnp.asarray(pos), jnp.asarray(m), jp)
     got = bf.force_tiled(torch.from_numpy(pos), torch.from_numpy(m), tp)
     assert got.shape == (128, 2)

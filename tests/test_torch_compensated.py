@@ -84,8 +84,8 @@ def _states(dt, n=500, seed=3, bounds_width=3.0):
     kw = dict(dt=3e-2, g_soft=0.02, bounds_width=bounds_width)
     js, jp = JState.create(pos, vel, mass, dtype=jdt), JParams.create(
         dtype=jdt, **kw)
-    st, pr = ParticleState.create(pos, vel, mass, dtype=tdt), \
-        SimParams.create(dtype=tdt, **kw)
+    st, pr = ParticleState.create(pos, vel, mass, dtype=tdt, device="cpu"), \
+        SimParams.create(dtype=tdt, **kw, device="cpu")
     rng = np.random.default_rng(1)
     lo = [(rng.normal(size=st.pos.shape) * 1e-9).astype(npdt)
           for _ in range(2)]
@@ -138,9 +138,9 @@ def test_comp_tracks_f64_closer_than_plain_orbit():
     def make(dtype):
         # capacity 2: no padding rows, the cheapest eager step
         return (ParticleState.create(pos, vel, mass, capacity=2,
-                                     dtype=dtype),
+                                     dtype=dtype, device="cpu"),
                 SimParams.create(dt=1e-3, g_soft=0.0, bounds_width=10.0,
-                                 dtype=dtype))
+                                 dtype=dtype, device="cpu"))
 
     force = get_engine("brute").force
     st32, pr32 = make(torch.float32)
@@ -162,8 +162,8 @@ def test_comp_energy_drift_improves():
     force = get_engine("brute").force
     pos, vel, mass = self_gravitating_disc(255, seed=4)
     kw = dict(dt=3e-2, g_soft=0.02, theta2=1.0, bounds_width=10.0)
-    state = ParticleState.create(pos, vel, mass)
-    params = SimParams.create(**kw)
+    state = ParticleState.create(pos, vel, mass, device="cpu")
+    params = SimParams.create(**kw, device="cpu")
 
     def drift(s0, s1, p):
         e0 = float(total_energy(s0, p))
@@ -172,8 +172,9 @@ def test_comp_energy_drift_improves():
     ep = drift(state, make_run(force)(state, params, 500), params)
     out_c, _ = make_run_comp(force)(state, init_comp(state), params, 500)
     ec = drift(state, out_c, params)
-    s64 = ParticleState.create(pos, vel, mass, dtype=torch.float64)
-    p64 = SimParams.create(dtype=torch.float64, **kw)
+    s64 = ParticleState.create(pos, vel, mass, dtype=torch.float64,
+                               device="cpu")
+    p64 = SimParams.create(dtype=torch.float64, **kw, device="cpu")
     e64 = drift(s64, make_run(force)(s64, p64, 500), p64)
     assert ec < max(0.5 * ep, 3.0 * e64 + 1e-7), (ep, ec, e64)
 
@@ -182,8 +183,8 @@ def test_comp_dead_particles_frozen():
     """A particle leaving the box dies; its pos/vel and low words freeze."""
     pos = np.array([[0.0, 0.0, 0.0], [4.9, 0.0, 0.0]])
     vel = np.array([[0.0, 0.0, 0.0], [50.0, 0.0, 0.0]])
-    state = ParticleState.create(pos, vel, np.ones(2))
-    params = SimParams.create(dt=1e-2, bounds_width=10.0)
+    state = ParticleState.create(pos, vel, np.ones(2), device="cpu")
+    params = SimParams.create(dt=1e-2, bounds_width=10.0, device="cpu")
     step = make_step_comp(get_engine("brute").force)
     s1, lo1 = step(state, init_comp(state), params)
     assert not bool(s1.alive[1])
@@ -265,12 +266,21 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
 
 
 def test_compensated_refuses_stateful_engines():
-    stateful = Engine(name="cached", force=elementwise, stateful=True)
-    with pytest.raises(ValueError, match="stateful"):
+    """compensated=True refuses a stateful engine with the JAX package's
+    text; without it the stateful stepper threads the engine's carry
+    (ROADMAP item 16, ported)."""
+    stateful = Engine(name="cached", force=elementwise,
+                      init_carry=lambda pos, mass, params: 0,
+                      force_carry=lambda pos, mass, params, c: (
+                          elementwise(pos, mass, params), c + 1))
+    assert stateful.stateful
+    with pytest.raises(ValueError, match="not supported with stateful "
+                       r"engines \(bh-lazy\); use engine='bh'"):
         _sim(engine=stateful)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _sim(engine=stateful, compensated=False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    sim = _sim(engine=stateful, compensated=False)
+    sim.run(3)
+    assert sim._carry == 3 and sim._lo is None
+    with pytest.raises(ValueError, match="stateful"):
         _sim(engine="bh-lazy")
 
 

@@ -341,7 +341,7 @@ def test_refined_build_on_card_matches_cpu(dev, cap):
     pos, mass = _clustered()
     kw = dict(max_level=3, refine_levels=2, refine_cap=cap,
               refine_threshold=64)
-    b = Bounds.cube((0.0, 0.0, 0.0), 10.0)
+    b = Bounds.cube((0.0, 0.0, 0.0), 10.0, device="cpu")
     cpu = build_octree(pos, mass, b, **kw)
     gpu = build_octree(pos.to(dev), mass.to(dev),
                        Bounds.cube((0.0, 0.0, 0.0), 10.0, device=dev), **kw)
@@ -597,3 +597,93 @@ def test_step_comp_on_card_bitwise_equal_to_cpu(dev):
     assert int(out[0][2].sum()) < 5001  # the narrow box culls some
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def _capture(monkeypatch, calls):
+    """Record the (tgt8, slab) of every K3 and K4 wrapper call the walk
+    makes, then launch as usual."""
+    for name in ("group_force", "quad_force"):
+        fn = getattr(gf, name)
+
+        def spy(tgt8, slab, *a, _fn=fn, _name=name, **k):
+            calls.append((_name, tgt8, slab, a, k))
+            return _fn(tgt8, slab, *a, **k)
+
+        monkeypatch.setattr(gf, name, spy)
+
+
+def _kernels_match_twins(calls):
+    """Each captured K3 / K4 call against its plain twin (1e-5, 5e-5)."""
+    for name, tgt8, slab, a, k in calls:
+        got = getattr(gf, name)(tgt8, slab, *a, **k)
+        torch.cuda.synchronize()
+        ref = getattr(gf, name + "_plain")(tgt8, slab, *a, **k)
+        tol = 1e-5 if name == "group_force" else 5e-5
+        assert _rel_err(got.reshape(-1, 3), ref.reshape(-1, 3)) < tol, name
+
+
+def test_k3_k4_on_2d_slabs_match_plain(dev, monkeypatch):
+    """A 2D state's quadtree walk hands K3 and K4 rows whose z column is
+    all zero; each kernel agrees with its twin on them, and the card's
+    forces with the CPU's on the alive rows (a dead row parked at the
+    origin, beside the star, is not a force any step uses)."""
+    from nbody_tpu_torch.core.state import SimParams
+    from nbody_tpu_torch.scenes import disc_2d
+
+    pos, vel, mass = disc_2d(6000, seed=1)
+    # the d-form pair blocks on the CPU, as the kernels compute (the f32
+    # norm trick rounds to ~1e-3 next to the star)
+    cfg = tt.BHConfig(dim=2, max_level=6, group_size=512, subgroups=16,
+                      window_pad=256, start_level=1, mxu_blocks=False)
+    out = {}
+    calls = []
+    _capture(monkeypatch, calls)
+    for d in ("cpu", dev):
+        st = ParticleState.create(pos, vel, mass, device=d)
+        p = SimParams.create(g_soft=EPS, theta2=0.5, bounds_center=(0.0, 0.0),
+                             device=d)
+        out[str(d)] = tt.bh_accel(st.pos, st.effective_mass(), p.bounds,
+                                  p.theta2, p.g, p.g_soft, cfg)[0]
+        alive = st.alive.cpu()
+    card = [c for c in calls if c[1].is_cuda]
+    assert {c[0] for c in card} == {"group_force", "quad_force"}
+    for _name, tgt8, slab, _a, _k in card:
+        assert float(tgt8[..., 2].abs().max()) == 0.0
+        assert float(slab[..., 2].abs().max()) == 0.0
+    monkeypatch.undo()
+    _kernels_match_twins(card)
+    assert out[str(dev)].shape == (6016, 2)
+    assert _rel_err(out[str(dev)].cpu()[alive], out["cpu"][alive]) < 1e-5
+
+
+def test_cached_slabs_and_forces_on_card(dev, monkeypatch):
+    """Walk reuse on the card: at the positions of the full walk the cached
+    call equals it (max row over mean row below 1e-6); the cached slabs
+    hold zero-mass rows with stale particle ids, on which K3 and K4 agree
+    with their twins."""
+    from nbody_tpu_torch.core.state import SimParams
+    from nbody_tpu_torch.ops import tree as ttree
+
+    pos, vel, mass = self_gravitating_disc(20000, seed=3)
+    st = ParticleState.create(pos, vel, mass, device=dev)
+    p = SimParams.create(g_soft=EPS, theta2=1.0, bounds_center=(0.3, 0.0, 0.0),
+                         device=dev)
+    cfg = tt.BHConfig.auto_for(st.capacity)
+    m = st.effective_mass()
+    b0 = p.bounds.centered()
+    tree = ttree.build_octree(st.pos - p.bounds.center, m, b0, cfg.max_level,
+                              **tt._build_args(cfg))
+    full, _, topo = tt.traverse_tree(tree, b0, p.theta2, p.g, p.g_soft, cfg,
+                                     st.capacity, return_topo=True)
+    calls = []
+    _capture(monkeypatch, calls)
+    fresh = ttree.refresh_octree(tree, st.pos - p.bounds.center, m,
+                                 quad=True)
+    cached, _ = tt.traverse_tree_cached(fresh, topo, p.theta2, p.g, p.g_soft,
+                                        cfg, st.capacity)
+    monkeypatch.undo()
+    assert _rel_err(cached, full) < 1e-6
+    k3 = [c for c in calls if c[0] == "group_force"]
+    assert k3 and bool(((k3[0][2][..., 3] == 0)
+                        & (k3[0][2][..., 4] != 0)).any())
+    _kernels_match_twins(calls)

@@ -31,7 +31,8 @@ def _port(jstate, jparams):
         for f in dataclasses.fields(ParticleState)})
     dtype = torch.float64 if jstate.dtype == jnp.float64 else torch.float32
     pr = SimParams.create(dt=float(jparams.dt), g_soft=float(jparams.g_soft),
-                          theta2=1.0, bounds_width=10.0, dtype=dtype)
+                          theta2=1.0, bounds_width=10.0, dtype=dtype,
+                          device="cpu")
     return st, pr
 
 

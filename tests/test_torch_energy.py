@@ -23,7 +23,7 @@ def _port_state(jstate):
 def test_energy_matches_jax(kill, g_soft):
     jstate, jparams, *_ = disc(700, 768, kill, g_soft=g_soft)
     st = _port_state(jstate)
-    params = SimParams.create(dt=3e-2, g_soft=g_soft)
+    params = SimParams.create(dt=3e-2, g_soft=g_soft, device="cpu")
     ke = float(energy.kinetic_energy(st))
     pe = float(energy.potential_energy(st, params, tile=256))
     assert ke == pytest.approx(float(jenergy.kinetic_energy(jstate)), rel=1e-6)

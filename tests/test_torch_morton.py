@@ -35,7 +35,8 @@ def test_cell_codes_and_centers_bit_equal(dtype, level):
     pos[:8] = [[5.0, 5.0, 5.0], [-5.0, -5.0, -5.0], [0, 0, 0], [5, -5, 0],
                [0.0, 4.99, -4.99], [7, 7, 7], [-7, 0, 7], [1e-7, -1e-7, 0]]
     jb = JaxBounds.cube([0.25, -0.5, 0.0], 10.0, dtype=getattr(jnp, dtype))
-    tb = Bounds.cube([0.25, -0.5, 0.0], 10.0, dtype=getattr(torch, dtype))
+    tb = Bounds.cube([0.25, -0.5, 0.0], 10.0, dtype=getattr(torch, dtype),
+                     device="cpu")
     ref = np.asarray(jm.cell_codes(jnp.asarray(pos), jb, level))
     got = tm.cell_codes(torch.from_numpy(pos), tb, level)
     assert got.dtype == torch.int32

@@ -22,8 +22,10 @@ NATIVE = Path(native.SOURCE).parent
 
 
 def _f64(pos, vel, mass, **kw):
-    return (ParticleState.create(pos, vel, mass, dtype=torch.float64),
-            SimParams.create(dtype=torch.float64, g_soft=0.02, **kw))
+    return (ParticleState.create(pos, vel, mass, dtype=torch.float64,
+                                 device="cpu"),
+            SimParams.create(dtype=torch.float64, g_soft=0.02, **kw,
+                             device="cpu"))
 
 
 @pytest.mark.parametrize("force", [force_dense, force_tiled])

@@ -27,7 +27,7 @@ def test_near_sym_with_block_dual_against_dense(base):
     cfg = dict(base, multipole="quad", block_dual=True, dual_margin=1.2)
     pos, mass = disc_inputs("float32")
     params = SimParams.create(dt=3e-2, g_soft=0.02, theta2=1.0,
-                              bounds_width=10.0)
+                              bounds_width=10.0, device="cpu")
     ref = force_dense(torch.from_numpy(pos), torch.from_numpy(mass),
                       params).numpy()
     a0, _, m = port_bh("float32", cfg)

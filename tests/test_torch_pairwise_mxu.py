@@ -31,7 +31,8 @@ def jax_order(pos, mass, bounds):
 
 def port_order(pos, mass):
     """The engine's own sort, on the bounds of ``disc``'s parameters."""
-    return pw.mxu_order(pos, mass, SimParams.create(bounds_width=10.0).bounds)
+    return pw.mxu_order(pos, mass, SimParams.create(bounds_width=10.0,
+                                                    device="cpu").bounds)
 
 
 @pytest.mark.parametrize("kill", [0, 37])

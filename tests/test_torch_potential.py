@@ -48,7 +48,7 @@ def _pair(n, seed, dt, shift=(0.0, 0.0, 0.0), dead=0):
         f.name: torch.from_numpy(np.array(getattr(js, f.name)))
         for f in dataclasses.fields(ParticleState)})
     return (js, JParams.create(dtype=jdt, **kw), st,
-            SimParams.create(dtype=tdt, **kw))
+            SimParams.create(dtype=tdt, **kw, device="cpu"))
 
 
 def _both(js, jp, st, pr, cfg_kw):
@@ -112,8 +112,8 @@ def test_auto_takes_the_estimator_above_262144(monkeypatch):
     CPU), as the JAX package resolves it."""
     cap = (1 << 18) + 128
     st = ParticleState.create(np.zeros((3, 3)), np.zeros((3, 3)), np.ones(3),
-                              capacity=cap)
-    pr = SimParams.create()
+                              capacity=cap, device="cpu")
+    pr = SimParams.create(device="cpu")
     calls = []
 
     def spy(state, params, theta2=None, cfg=None):

@@ -49,7 +49,7 @@ def _both(pos, mass, dtype):
     return ((jnp.asarray(p), jnp.asarray(m),
              JaxBounds.cube((0.0, 0.0, 0.0), 10.0, dtype=jd)),
             (torch.from_numpy(p), torch.from_numpy(m),
-             Bounds.cube((0.0, 0.0, 0.0), 10.0, dtype=td)))
+             Bounds.cube((0.0, 0.0, 0.0), 10.0, dtype=td, device="cpu")))
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +119,8 @@ def test_refined_children_tile_their_parents():
 def test_refine_depth_limit():
     with pytest.raises(ValueError, match="Morton code depth limit"):
         ttree.build_octree(torch.zeros((8, 3)), torch.ones(8),
-                           Bounds.cube((0.0, 0.0, 0.0), 1.0), max_level=8,
-                           refine_levels=3)
+                           Bounds.cube((0.0, 0.0, 0.0), 1.0, device="cpu"),
+                           max_level=8, refine_levels=3)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +269,7 @@ def test_refined_matches_unrefined_on_uniform_scene():
     rng = np.random.default_rng(3)
     pos = torch.from_numpy(rng.uniform(-4, 4, (2048, 3)).astype(np.float32))
     mass = torch.full((2048,), 1.0 / 2048)
-    b = Bounds.cube((0.0, 0.0, 0.0), 10.0)
+    b = Bounds.cube((0.0, 0.0, 0.0), 10.0, device="cpu")
     a0, _ = tt.bh_accel(pos, mass, b, 1.0, 1.0, EPS, tt.BHConfig(**STARVED))
     a1, s1 = tt.bh_accel(pos, mass, b, 1.0, 1.0, EPS, tt.BHConfig(
         **STARVED, refine_levels=2, refine_cap=256, refine_frontier=512,

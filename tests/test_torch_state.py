@@ -48,13 +48,14 @@ def test_bounds_contains_exact_on_faces():
     pts = np.stack(pts)
     ref = np.asarray(JaxBounds.cube(center, width, dtype=jnp.float32)
                      .contains(jnp.asarray(pts)))
-    got = Bounds.cube(center, width).contains(torch.from_numpy(pts)).numpy()
+    got = Bounds.cube(center, width, device="cpu").contains(
+        torch.from_numpy(pts)).numpy()
     np.testing.assert_array_equal(got, ref)
     assert got.sum() == 12 and (~got).sum() == 6  # on-face and inside count
 
 
 def test_bounds_normalize_and_centered():
-    b = Bounds.cube((1.0, 2.0, 3.0), 4.0)
+    b = Bounds.cube((1.0, 2.0, 3.0), 4.0, device="cpu")
     jb = JaxBounds.cube((1.0, 2.0, 3.0), 4.0, dtype=jnp.float32)
     p = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
     np.testing.assert_array_equal(
@@ -70,7 +71,7 @@ def test_bounds_normalize_and_centered():
 def test_capacity_and_padding(n, pad, capacity):
     pos, vel, mass = self_gravitating_disc(n - 1, seed=3)
     got = ParticleState.create(pos, vel, mass, pad_multiple=pad,
-                               capacity=capacity)
+                               capacity=capacity, device="cpu")
     ref = JaxState.create(pos, vel, mass, pad_multiple=pad, capacity=capacity,
                           dtype=jnp.float32)
     _assert_same(got, ref)
@@ -84,12 +85,12 @@ def test_capacity_and_padding(n, pad, capacity):
 def test_capacity_below_n_raises():
     pos, vel, mass = self_gravitating_disc(9, seed=0)
     with pytest.raises(ValueError):
-        ParticleState.create(pos, vel, mass, capacity=5)
+        ParticleState.create(pos, vel, mass, capacity=5, device="cpu")
 
 
 def test_add_remove_get_points_match_jax():
     pos, vel, mass = self_gravitating_disc(100, seed=1)
-    got = ParticleState.create(pos, vel, mass)
+    got = ParticleState.create(pos, vel, mass, device="cpu")
     ref = JaxState.create(pos, vel, mass, dtype=jnp.float32)
     for op in (("add", [2.0, 0.1, 0.0], [0.0, 0.5, 0.0], 1e-3),
                ("remove", 5), ("remove", 0),
@@ -106,13 +107,14 @@ def test_add_remove_get_points_match_jax():
 
 def test_add_point_when_full_raises():
     pos, vel, mass = self_gravitating_disc(127, seed=1)
-    st = ParticleState.create(pos, vel, mass)
+    st = ParticleState.create(pos, vel, mass, device="cpu")
     with pytest.raises(ValueError):
         st.add_point([0.0, 0.0, 0.0], [0.0, 0.0, 0.0], 1.0)
 
 
 def test_params_are_host_floats_rounded_like_jax():
-    got = SimParams.create(g=1.3, g_soft=0.02, dt=3e-2, theta2=0.7)
+    got = SimParams.create(g=1.3, g_soft=0.02, dt=3e-2, theta2=0.7,
+                           device="cpu")
     ref = JaxParams.create(g=1.3, g_soft=0.02, dt=3e-2, theta2=0.7,
                            dtype=jnp.float32)
     for k in ("g", "g_soft", "dt", "theta2"):
@@ -165,3 +167,38 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     _assert_same(sim.state, jsim.state)
     assert float(jsim.settings.dt) == sim.settings.dt
     assert jsim.n_alive == sim.n_alive
+
+
+def test_constructors_default_to_the_card():
+    """The public constructors put their tensors on the card unless the
+    caller asks for the CPU, as Simulation does: with no CUDA the default
+    raises the same error as Simulation's, and device="cpu" gives CPU
+    tensors."""
+    pos, vel, mass = self_gravitating_disc(9, seed=0)
+    state = ParticleState.create(pos, vel, mass, device="cpu")
+    params = SimParams.create(device="cpu")
+    makers = {
+        "ParticleState.create": lambda **kw: ParticleState.create(
+            pos, vel, mass, **kw),
+        "SimParams.create": lambda **kw: SimParams.create(**kw),
+        "Bounds.cube": lambda **kw: Bounds.cube((0.0, 0.0, 0.0), 10.0, **kw),
+        "ParticleState.from_numpy": lambda **kw: ParticleState.from_numpy(
+            state.to_numpy(), **kw),
+        "SimParams.from_numpy": lambda **kw: SimParams.from_numpy(
+            params.to_numpy(), **kw),
+    }
+    def tensors(out):
+        if isinstance(out, ParticleState):
+            return [out.pos, out.mass, out.alive, out.time]
+        if isinstance(out, Bounds):
+            return [out.center, out.half_width]
+        return [out.bounds.center, out.bounds.half_width]
+
+    for name, make in makers.items():
+        assert all(t.device.type == "cpu"
+                   for t in tensors(make(device="cpu"))), name
+        if torch.cuda.is_available():
+            assert all(t.device.type == "cuda" for t in tensors(make())), name
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()

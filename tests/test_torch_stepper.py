@@ -35,7 +35,8 @@ def test_make_run_matches_jax_across_box_faces(integrator):
     ref = jax_make_run(jax_force, integrator)(
         js, JaxParams.create(dtype=jnp.float32, **kw), 10)
     got = make_run(force_tiled, integrator)(
-        ParticleState.create(pos, vel, mass), SimParams.create(**kw), 10)
+        ParticleState.create(pos, vel, mass, device="cpu"),
+        SimParams.create(**kw, device="cpu"), 10)
     alive = np.asarray(ref.alive)
     assert 0 < alive.sum() < len(pos)  # the cull acted
     # the cull is a comparison: it must decide identically
@@ -51,8 +52,9 @@ def test_make_run_matches_jax_across_box_faces(integrator):
 def test_dead_particles_frozen_with_zero_acceleration():
     pos, vel, mass = _scene(seed=1)
     step = make_step(force_tiled)
-    params = SimParams.create(dt=0.05, g_soft=0.05, bounds_width=WIDTH)
-    st = ParticleState.create(pos, vel, mass)
+    params = SimParams.create(dt=0.05, g_soft=0.05, bounds_width=WIDTH,
+                              device="cpu")
+    st = ParticleState.create(pos, vel, mass, device="cpu")
     for _ in range(8):
         new = step(st, params)
         dead = ~new.alive
@@ -67,8 +69,9 @@ def test_dead_particles_frozen_with_zero_acceleration():
 
 def test_run_equals_repeated_steps():
     pos, vel, mass = _scene(64, seed=2)
-    params = SimParams.create(dt=0.05, g_soft=0.05, bounds_width=WIDTH)
-    st = ParticleState.create(pos, vel, mass)
+    params = SimParams.create(dt=0.05, g_soft=0.05, bounds_width=WIDTH,
+                              device="cpu")
+    st = ParticleState.create(pos, vel, mass, device="cpu")
     a = make_run(force_tiled)(st, params, 4)
     b = st
     for _ in range(4):

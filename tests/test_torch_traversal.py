@@ -89,7 +89,8 @@ def port_bh(dtype, case, **over):
     g_soft = float(torch.tensor(0.02, dtype=td))
     acc, stats = tt.bh_accel(
         torch.from_numpy(pos), torch.from_numpy(mass),
-        Bounds.cube([0.0, 0.0, 0.0], 10.0, dtype=td), 1.0, 1.0, g_soft,
+        Bounds.cube([0.0, 0.0, 0.0], 10.0, dtype=td, device="cpu"), 1.0, 1.0,
+        g_soft,
         tt.BHConfig(**CASES[case], **over))
     return acc.numpy(), {k: int(stats[k]) for k in STATS + ("dual_tiles",)}
 
@@ -144,8 +145,9 @@ def test_theta_zero_is_the_direct_sum():
     from nbody_tpu_torch.core.state import ParticleState
 
     p, v, m = self_gravitating_disc(300, seed=0)
-    st = ParticleState.create(p, v, m, dtype=torch.float64)
-    params = SimParams.create(g_soft=0.02, theta2=0.0, dtype=torch.float64)
+    st = ParticleState.create(p, v, m, dtype=torch.float64, device="cpu")
+    params = SimParams.create(g_soft=0.02, theta2=0.0, dtype=torch.float64,
+                              device="cpu")
     mass = st.effective_mass()
     cfg = tt.BHConfig(max_level=4, group_size=64, window_pad=64,
                       frontier_cap=4096, near_cell_cap=2048,
@@ -166,26 +168,44 @@ def test_theta_zero_is_the_direct_sum():
     ("quad_leaf", True, "item 18"), ("fb_quad", True, "item 18"),
     ("dim", 2, "item 18")])
 def test_unported_fields_raise(field, value, item):
-    """Fields of paths not ported yet raise, naming their ROADMAP item.
-    refine_levels (item 15) is ported: it is accepted and validated as the
-    JAX package validates it."""
-    if field == "refine_levels":
-        cfg = tt.BHConfig(**{field: value})
-        assert cfg.refine_levels == value
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(
-            jt.BHConfig(**{field: value}))
-        with pytest.raises(ValueError, match="Morton depth limit"):
-            tt.BHConfig(max_level=9, **{field: value})
+    """Only the field of the path not ported yet (wide, item 17) raises,
+    naming its ROADMAP item.  The others (items 15, 16, 18) are ported:
+    each is accepted as the JAX package accepts it, the config equals the
+    JAX package's, and JAX's own checks raise with JAX's texts
+    (fb_quad without quad_leaf; the Morton depth limit, 10 in 3D, 15 in
+    2D; refine_frontier a multiple of the branch factor)."""
+    if item == "item 17":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, "
+                           f"{item}"):
+            tt.BHConfig(**{field: value})
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, "
-                       f"{item}"):
-        tt.BHConfig(**{field: value})
+    kw = {field: value}
+    if field == "fb_quad":
+        for cfg_cls in (tt.BHConfig, jt.BHConfig):
+            with pytest.raises(ValueError,
+                               match="fb_quad=True requires quad_leaf=True"):
+                cfg_cls(**kw)
+        kw["quad_leaf"] = True
+    cfg = tt.BHConfig(**kw)
+    assert getattr(cfg, field) == value
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jt.BHConfig(**kw))
+    if field == "refine_levels":
+        with pytest.raises(ValueError, match="3D Morton depth limit"):
+            tt.BHConfig(max_level=9, **kw)
+    if field == "dim":
+        refined = dict(kw, refine_levels=2, refine_frontier=36)
+        assert tt.BHConfig(max_level=13, **refined).branch == 4
+        for cfg_cls in (tt.BHConfig, jt.BHConfig):
+            with pytest.raises(ValueError, match="2D Morton depth limit"):
+                cfg_cls(max_level=14, **refined)
+            with pytest.raises(ValueError, match="multiple of 4, got 38"):
+                cfg_cls(**dict(refined, refine_frontier=38))
 
 
 def test_eval_modes():
     pos, mass = _inputs("float32")
     args = (torch.from_numpy(pos), torch.from_numpy(mass),
-            Bounds.cube([0.0, 0.0, 0.0], 10.0), 1.0, 1.0, 0.02)
+            Bounds.cube([0.0, 0.0, 0.0], 10.0, device="cpu"), 1.0, 1.0, 0.02)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tt.bh_accel(*args, tt.BHConfig(eval_mode="pallas", **BASE))
     with pytest.raises(ValueError, match="eval_mode"):

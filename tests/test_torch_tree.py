@@ -38,7 +38,8 @@ def trees(request):
                              level, quad=True, quad_leaf=False)
     got = ttree.build_octree(torch.from_numpy(pos), torch.from_numpy(mass),
                              Bounds.cube([0.0, 0.0, 0.0], 10.0,
-                                         dtype=getattr(torch, dtype)),
+                                         dtype=getattr(torch, dtype),
+                                         device="cpu"),
                              level, quad=True)
     return level, dtype, ref, got
 
@@ -99,7 +100,8 @@ def test_prefix_scan_keeps_one_particle_leaves_exact():
     pos[0] = [4.8, 4.8, 4.8]
     mass = np.ones(20000, np.float32)
     tree = ttree.build_octree(torch.from_numpy(pos), torch.from_numpy(mass),
-                              Bounds.cube([0.0, 0.0, 0.0], 10.0), 7)
+                              Bounds.cube([0.0, 0.0, 0.0], 10.0,
+                                          device="cpu"), 7)
     leaf = int(tree.code_s[(tree.order == 0).nonzero()[0, 0]])
     assert int(tree.leaf_starts[leaf + 1] - tree.leaf_starts[leaf]) == 1
     com = tree.level_mpos[7][leaf] / tree.level_mass[7][leaf]

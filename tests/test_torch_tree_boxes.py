@@ -24,7 +24,7 @@ CENTER, WIDTH = (0.3, -0.2, 0.1), 10.0
 
 def _both(pos, mass, max_level, clamp=4096, **refine):
     jb = JaxBounds.cube(jnp.asarray(CENTER, jnp.float32), WIDTH, jnp.float32)
-    tb = Bounds.cube(CENTER, WIDTH, dtype=torch.float32)
+    tb = Bounds.cube(CENTER, WIDTH, dtype=torch.float32, device="cpu")
     jt = jtree.build_octree(jnp.asarray(pos), jnp.asarray(mass), jb,
                             max_level, **refine)
     tt = ttree.build_octree(torch.from_numpy(pos), torch.from_numpy(mass),
@@ -79,7 +79,7 @@ def test_refined_tree_boxes_match_jax(refine_levels):
 def test_centers_decode_at_depth_ten():
     """Refined codes reach depth L + R <= MAX_LEVEL_3D = 10 (30 bits):
     ``cell_centers_from_codes`` decodes the extreme cells there."""
-    b = Bounds.cube(CENTER, WIDTH, dtype=torch.float64)
+    b = Bounds.cube(CENTER, WIDTH, dtype=torch.float64, device="cpu")
     n = 1 << morton.MAX_LEVEL_3D
     axes = torch.tensor([[0, 0, 0], [n - 1, n - 1, n - 1], [n - 1, 0, 5]])
     codes = morton.encode3(axes[:, 0], axes[:, 1], axes[:, 2])

@@ -61,7 +61,7 @@ def port_bh(dtype, cfg, g_soft=0.02, **inputs):
     td = getattr(torch, dtype)
     acc, stats = tt.bh_accel(
         torch.from_numpy(pos), torch.from_numpy(mass),
-        Bounds.cube([0.0, 0.0, 0.0], 10.0, dtype=td), 1.0, 1.0,
+        Bounds.cube([0.0, 0.0, 0.0], 10.0, dtype=td, device="cpu"), 1.0, 1.0,
         float(torch.tensor(g_soft, dtype=td)),
         tt.BHConfig(mxu_blocks=False, **cfg))
     return acc.numpy(), {k: int(stats[k]) for k in STATS}, mass
