@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs twenty-one phases, each
+(one nvcc per source, all at once), then runs twenty-two phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -114,7 +114,14 @@ printing one line and stopping the script with a non-zero exit on failure:
      their twins on the new slabs (2D rows with z = 0, cached slabs with
      stale ids in zero-mass rows), the bh envelope against the K2 oracle,
      one host read a step on the stateful engines, steps/s beside plain
-     ``bh`` and a full and a cached step's kernel launches.
+     ``bh`` and a full and a cached step's kernel launches;
+ 22. the sharded path (``sharded_phase``) at world size 1 over NCCL:
+     ``ShardedSimulation`` on ``allgather`` and ``ring`` (the 65536 disc,
+     K2) and on ``bh`` (the domain decomposition) and ``bh-replicated``
+     (the 2^20 disc, K3 and K4): each force call against the single-chip
+     engine's on the same state, without a host sync; the sharded exact
+     energy, drift, the bh envelope against the K2 oracle, steps/s beside
+     the single-chip engines.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -969,7 +976,8 @@ def reuse_phase():
     a_full, _, topo_f = tt.traverse_tree(t_full, b0, prm.theta2, prm.g,
                                          prm.g_soft, cfg, st.capacity,
                                          return_topo=True)
-    t_ref = ttree.refresh_octree(t_full, pos_c, m, quad=True)
+    t_ref = ttree.refresh_octree(t_full, pos_c, m, quad=True,
+                                 quad_leaf=cfg.quad_leaf)
     calls = record_calls(lambda: out.update(cached=tt.traverse_tree_cached(
         t_ref, topo_f, prm.theta2, prm.g, prm.g_soft, cfg, st.capacity)))
     a_cached = out.pop("cached")[0]
@@ -1029,8 +1037,8 @@ def reuse_phase():
     med_b, p99_b = envelope("1M bh-lazy", st, acc)
     pos_c = st.pos - prm.bounds.center
     t0_ = ttree.build_octree(pos_c, m, prm.bounds.centered(), cfg.max_level,
-                             quad=True)
-    t1_ = ttree.refresh_octree(t0_, pos_c, m)
+                             quad=True, quad_leaf=cfg.quad_leaf)
+    t1_ = ttree.refresh_octree(t0_, pos_c, m, quad_leaf=cfg.quad_leaf)
     for name in ("order", "code_s", "leaf_starts"):
         require(torch.equal(getattr(t0_, name), getattr(t1_, name)),
                 f"refresh {name}")
@@ -1210,6 +1218,171 @@ def reuse_phase():
     parts.append("(e) one 2^20 bh force call: " + "; ".join(readings))
     print(f"[21 reuse, lazy, 2D, options] {nvidia_smi()} | "
           + " | ".join(parts), flush=True)
+    return out
+
+
+# phase 22: the sharded path at world size 1 over NCCL, at the main paths'
+# sizes: the direct-sum disc and the 2^20 Barnes-Hut disc
+SHARD_BRUTE_N = 65535  # + the star
+SHARD_BRUTE_STEPS = 25
+SHARD_BH_N = 1048575  # + the star: 2^20 rows
+SHARD_BH_STEPS = 10
+
+
+def sharded_phase():
+    """Phase 22, ``nbody_tpu_torch.parallel`` on the card: a one-rank NCCL
+    group (the card holds one rank; NCCL refuses two ranks on one GPU).
+    (a) the 65535 + star disc on ``allgather`` and ``ring``, 25 steps each:
+    K2 every step, one force call within 1e-4 of the single-chip
+    ``brute-pallas`` force (K1) on the same state, the sharded exact
+    energy within 1e-6 of the single-chip exact energy, drift below 1e-5,
+    steps/s beside ``brute-pallas``.  (b) the 1048575 + star disc on
+    ``bh`` (the domain decomposition) and ``bh-replicated``, 10 steps each:
+    K3 and K4 every step, one force call against the single-chip ``bh``
+    force on the same state (the reading printed, held to 1e-5: at world
+    size 1 the window lies inside the shard and the walks are the same),
+    the final state against the K2 oracle within the bh envelope, drift
+    through the tree estimator finite and below 5e-3, steps/s beside plain
+    ``bh``, and one ``bh`` (domain) force call split at its phase marks
+    beside plain ``bh``'s.  Every sharded force call enqueues without a
+    host sync (``torch.cuda.set_sync_debug_mode("error")``).  Returns the launches of
+    the runs and the readings for the kernels line."""
+    import torch
+    import torch.distributed as dist
+    from nbody_tpu_torch import Simulation
+    from nbody_tpu_torch.core.energy import total_energy
+    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import traversal as tt
+    from nbody_tpu_torch.parallel import ShardedSimulation
+    from nbody_tpu_torch.parallel.domain import domain_accel
+    from nbody_tpu_torch.parallel.sharded import make_sharded_force
+    from nbody_tpu_torch.scenes import self_gravitating_disc
+
+    out = {"k2": 0, "k3": 0, "k4": 0}
+    parts = []
+    common = dict(dt=3e-2, g_soft=EPS, theta2=1.0, device="cuda")
+
+    def timed(sim, steps):
+        sim.compile(1)
+        t0 = time.perf_counter()
+        sim.run(steps)
+        sim.block_until_ready()
+        return steps / (time.perf_counter() - t0)
+
+    def no_sync_force(sim, strategy):
+        """One sharded force call on the current state, refused any host
+        sync."""
+        st = sim.state
+        force = make_sharded_force(sim.mesh, strategy,
+                                   bh_config=sim._bh_config)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc = force(st.pos, st.effective_mass(), sim.settings)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return acc
+
+    # (a) the direct sums
+    pos, vel, mass = self_gravitating_disc(SHARD_BRUTE_N, seed=0)
+    single = Simulation(pos, vel, mass, engine="brute-pallas", **common)
+    rate_single = timed(single, SHARD_BRUTE_STEPS)
+    e_single = single.energy("exact")
+    single.reset()
+    for strategy in ("allgather", "ring"):
+        sim = ShardedSimulation(pos, vel, mass, engine="brute-pallas",
+                                strategy=strategy, n_devices=1, **common)
+        require(sim.mesh.world == 1 and dist.get_backend() == "nccl",
+                f"{strategy}: mesh {sim.mesh}, backend {dist.get_backend()}")
+        st = sim.state
+        require(st.capacity == single.state.capacity, "brute capacities")
+        m = st.effective_mass()
+        acc = no_sync_force(sim, strategy)
+        ref = single.engine.force(st.pos, m, single.settings)
+        e_force = rel_err(acc, ref)
+        require(e_force < 1e-4, f"{strategy} vs brute-pallas: {e_force:.3e}")
+        e0 = sim.energy()
+        e_rel = abs(e0 - e_single) / abs(e_single)
+        require(e_rel < 1e-6, f"{strategy} energy {e0} vs {e_single}")
+        pw.reset_launch_counts()
+        rate = timed(sim, SHARD_BRUTE_STEPS)
+        k2 = pw.launch_counts()["pairwise_acc_targets"]
+        require(k2 >= SHARD_BRUTE_STEPS, f"{strategy}: K2 launched {k2}x")
+        out["k2"] += k2
+        drift = abs((sim.energy() - e0) / e0)
+        require(drift < 1e-5, f"{strategy}: drift {drift:.3e}")
+        parts.append(
+            f"(a) {strategy} at {st.capacity}: K2 {k2}x in "
+            f"{SHARD_BRUTE_STEPS + 1} steps, {rate:.3f} steps/s (brute-pallas"
+            f" {rate_single:.3f}), force vs brute-pallas (K1) {e_force:.2e}, "
+            f"energy vs single-chip {e_rel:.1e}, drift {drift:.3e}")
+        del sim, st, acc, ref
+    del single
+
+    # (b) Barnes-Hut at 2^20
+    pos, vel, mass = self_gravitating_disc(SHARD_BH_N, seed=0)
+    plain = Simulation(pos, vel, mass, engine="bh", **common)
+    rate_plain = timed(plain, SHARD_BH_STEPS)
+    plain.reset()
+    for strategy in ("bh", "bh-replicated"):
+        sim = ShardedSimulation(pos, vel, mass, engine="bh",
+                                strategy=strategy, n_devices=1, **common)
+        st = sim.state
+        require(st.capacity == plain.state.capacity, "bh capacities")
+        m = st.effective_mass()
+        acc = no_sync_force(sim, strategy)
+        ref = plain.engine.force(st.pos, m, plain.settings)
+        e_force = rel_err(acc, ref)
+        require(e_force < 1e-5, f"{strategy} vs bh: {e_force:.3e}")
+        bitwise = torch.equal(acc, ref)
+        split = ""
+        if strategy == "bh":
+            prm, cfg = sim.settings, sim._bh_config
+            d_split = split_call(lambda mark: domain_accel(
+                st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg,
+                sim.mesh, mark=mark))
+            b_split = split_call(lambda mark: tt.bh_accel(
+                st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg,
+                mark=mark))
+            split = (f"; one force call split (ms): domain {d_split} "
+                     f"against bh {b_split}")
+        e0 = float(total_energy(st, sim.settings, method="bh"))
+        gf.reset_launch_counts()
+        tt.reset_host_reads()
+        rate = timed(sim, SHARD_BH_STEPS)
+        counts = gf.launch_counts()
+        require(counts["group_force"] >= SHARD_BH_STEPS
+                and counts["quad_force"] >= SHARD_BH_STEPS,
+                f"{strategy}: launches {counts}")
+        require(tt.HOST_READS["moved_frac"] == 0, f"{strategy}: host reads")
+        out["k3"] += counts["group_force"]
+        out["k4"] += counts["quad_force"]
+        st = sim.state
+        m = st.effective_mass()
+        require(bool(torch.isfinite(st.pos).all()), f"{strategy}: not finite")
+        acc = make_sharded_force(sim.mesh, strategy,
+                                 bh_config=sim._bh_config)(st.pos, m,
+                                                           sim.settings)
+        med, p99 = sampled_error(st.pos, m, st.alive, acc)
+        require(med < 2e-3 and p99 < 5e-2,
+                f"{strategy}: sampled median {med:.3e}, p99 {p99:.3e}")
+        e1 = float(total_energy(st, sim.settings, method="bh"))
+        drift = abs((e1 - e0) / e0)
+        require(math.isfinite(drift) and drift < 5e-3,
+                f"{strategy}: drift {drift}")
+        parts.append(
+            f"(b) {strategy} at {st.capacity}: launches {counts} in "
+            f"{SHARD_BH_STEPS + 1} steps, {rate:.3f} steps/s (plain bh "
+            f"{rate_plain:.3f}), force vs single-chip bh {e_force:.2e} "
+            f"(bitwise {bitwise}), final state vs K2 median {med:.3e} p99 "
+            f"{p99:.3e}, drift {drift:.3e} (tree estimator){split}")
+        del sim, st, acc, ref
+    del plain
+    dist.destroy_process_group()
+    print(f"[22 sharded, world size 1] {nvidia_smi()} | " + " | ".join(parts),
+          flush=True)
     return out
 
 
@@ -2556,13 +2729,16 @@ def main() -> int:
 
     # -- 21. walk reuse, bh-lazy, 2D states, the BH options -----------------
     reuse = reuse_phase()
+
+    # -- 22. the sharded path -----------------------------------------------
+    sharded = sharded_phase()
     smi = nvidia_smi()
 
-    # the main paths' launches: phases 9, 19, 20 and 21 (each run read
+    # the main paths' launches: phases 9, 19, 20, 21 and 22 (each run read
     # alone)
     bh_runs = [*bh_launches.values(), *adaptive["launches"].values(),
                vis["launches"], *reuse["launches"].values()]
-    k4_launches = sum(c["quad_force"] for c in bh_runs)
+    k4_launches = sum(c["quad_force"] for c in bh_runs) + sharded["k4"]
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
         # no single PyTorch call computes a softened-gravity sum
         return {"name": name, "route": "cuda", "source": source,
@@ -2575,7 +2751,8 @@ def main() -> int:
               launches["pairwise_acc_sym"], k1_abs, k1_ms, k1_plain,
               k1_bound),
         entry("K2 pairwise_acc_targets", SOURCE,
-              "nbody_tpu/ops/pairwise.py:86", launches["pairwise_acc_targets"],
+              "nbody_tpu/ops/pairwise.py:86",
+              launches["pairwise_acc_targets"] + sharded["k2"],
               k2_abs, k2_ms, k2_plain, k2_bound),
         # brute-pallas above 262144: launches are phase 5's 301056-row run
         entry(f"K2 pairwise_acc_targets (brute-pallas, K = N = "
@@ -2587,7 +2764,7 @@ def main() -> int:
               k2_o20_ms, k2_o20_plain, k2_o20_bound),
         entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
-              sum(c["group_force"] for c in bh_runs),
+              sum(c["group_force"] for c in bh_runs) + sharded["k3"],
               max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"],
                   reuse["k3_abs"]), k3_ms, k3_plain, k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,

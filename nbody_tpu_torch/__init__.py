@@ -12,8 +12,9 @@ Barnes-Hut engines ``bh`` / ``bh-deep`` (Morton octree, vectorized group
 walk; their group and quadrupole sums run in ``csrc/group_force.cu``, each
 group's own square with ``near_sym`` in ``csrc/pairwise.cu``), their
 stateful variants (walk reuse with ``walk_every``, the lazy-rebuild
-``bh-lazy``) and 2D quadtree states, and the visualizer server with its
-octree boxes (``vis/``).  Tensors go to the card unless the caller asks
+``bh-lazy``) and 2D quadtree states, the visualizer server with its
+octree boxes (``vis/``), and the sharded path over ``torch.distributed``
+(``parallel/``: ``ShardedSimulation``, one rank a process).  Tensors go to the card unless the caller asks
 for the CPU; there the same engines run plain torch.  The JAX package
 ``nbody_tpu`` stays beside it as the reference the port is tested against;
 this package never imports jax.

@@ -104,8 +104,8 @@ def _check_format(format: str):
     if format == "orbax":
         raise NotImplementedError(
             "format='orbax' is not yet ported to nbody_tpu_torch; "
-            "torch.distributed.checkpoint takes its place with the sharded "
-            "path (ROADMAP.md, queue 1, item 17)")
+            "torch.distributed.checkpoint is to take its place "
+            "(ROADMAP.md, queue 1, item 17d)")
     if format != "pickle":
         raise ValueError(
             f"format must be 'pickle' or 'orbax', got {format!r}")

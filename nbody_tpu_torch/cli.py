@@ -17,9 +17,12 @@ Example:
     python -m nbody_tpu_torch -n 1048575 --engine bh --walk-every 4 \
         --steps 12 --energy --json --device cuda
 
-The flag of the path that is not ported yet (``--devices``, sharding) is
-accepted by the parser so that a command line of the JAX package reads the
-same, and exits with a message.
+    torchrun --nproc-per-node 4 -m nbody_tpu_torch -n 1048575 \
+        --engine bh --devices 4 --steps 10 --json
+
+``--devices N`` (N > 1) runs ``ShardedSimulation`` on a process group of
+world size N: one the caller initialized, or one from ``torchrun``'s
+environment.  Every rank runs the same command; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 
 import torch
 
-from nbody_tpu_torch.api import Simulation
+from nbody_tpu_torch.api import Simulation, resolve_auto_engine
 from nbody_tpu_torch.engines import ENGINES
 from nbody_tpu_torch.ops.traversal import (
     DENSE_OVERRIDES,
@@ -79,9 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save", metavar="PATH", default=None,
                    help="checkpoint the final state to PATH (a pickle the "
                    "JAX package also reads)")
-    # not yet ported: accepted, then rejected in main() with a message
     p.add_argument("--devices", type=int, default=0,
-                   help="not yet ported (sharding over several devices)")
+                   help="shard particles over this many ranks, one a card "
+                   "(0 or 1 = single device; N > 1 needs a process group of "
+                   "world size N, e.g. from torchrun --nproc-per-node N)")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the timed "
                    "loop into DIR")
@@ -142,14 +147,33 @@ def _adaptive_options(args, pos, bounds_center) -> dict:
     return opts
 
 
+def _process_group(n: int, device) -> bool:
+    """Make sure a process group of world size ``n`` is initialized: the
+    caller's, or one from ``torchrun``'s environment (returns True when
+    this call made it).  Anything else exits naming the launcher."""
+    import torch.distributed as dist
+
+    from nbody_tpu_torch.parallel.mesh import GROUP_TIMEOUT, backend_for
+
+    hint = f"run it as torchrun --nproc-per-node {n} -m nbody_tpu_torch ..."
+    made = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+            raise SystemExit(f"--devices {n} needs a process group of world "
+                             f"size {n} and none is initialized; {hint}")
+        dist.init_process_group(backend_for(device), timeout=GROUP_TIMEOUT)
+        made = True
+    if dist.get_world_size() != n:
+        raise SystemExit(f"--devices {n} but the process group has world "
+                         f"size {dist.get_world_size()}; {hint}")
+    return made
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.devices > 1:
-        raise SystemExit("--devices (sharding over several devices) is not "
-                         "yet ported to nbody_tpu_torch (ROADMAP.md, queue 1, "
-                         "item 17)")
     device = "cpu" if args.cpu else args.device
     dtype = torch.float64 if args.f64 else torch.float32
+    sharded = args.devices > 1
 
     eng_opts = {}
     for flag, on, opts in (("--accurate", args.accurate, dict(window_pad=2048)),
@@ -163,24 +187,48 @@ def main(argv=None) -> dict:
     # one box for the adaptive resolver and the Simulation: the CLI's
     # scenes are centred at the origin
     bounds_center = (0.0, 0.0, 0.0)
+    if sharded and args.engine == "auto":
+        # ShardedSimulation has no auto mode: the crossover is applied here
+        args.engine = resolve_auto_engine(len(mass), device)
     eng_opts.update(_adaptive_options(args, pos, bounds_center))
     if args.walk_every > 1:
         if not args.engine.startswith("bh") or args.engine == "bh-lazy":
             raise SystemExit("--walk-every applies to bh/bh-deep only")
+        if sharded:
+            raise SystemExit("--walk-every is single-device only")
         eng_opts.update(walk_every=args.walk_every)
-    sim = Simulation(
-        pos, vel, mass,
-        engine=args.engine,
-        integrator=args.integrator,
-        bounds_center=bounds_center,
-        bounds_width=args.box_width,
-        dtype=dtype,
-        device=device,
-        dt=args.dt, g=args.g, g_soft=args.g_soft, theta2=args.theta2,
-        compensated=args.compensated,
-        engine_options=eng_opts or None,
-    )
+    common = dict(integrator=args.integrator, bounds_center=bounds_center,
+                  bounds_width=args.box_width, dtype=dtype, device=device,
+                  dt=args.dt, g=args.g, g_soft=args.g_soft,
+                  theta2=args.theta2, engine_options=eng_opts or None)
+    made_group = False
+    if sharded:
+        from nbody_tpu_torch.parallel import ShardedSimulation
 
+        if args.compensated:
+            raise SystemExit(
+                "--compensated is single-device only (use --devices 1)")
+        made_group = _process_group(args.devices, device)
+        sim = ShardedSimulation(pos, vel, mass, engine=args.engine,
+                                n_devices=args.devices, **common)
+        engine_name, run_device = args.engine, sim.mesh.device
+        printer = print if sim.mesh.rank == 0 else (lambda *a, **k: None)
+    else:
+        sim = Simulation(pos, vel, mass, engine=args.engine,
+                         compensated=args.compensated, **common)
+        engine_name, run_device, printer = sim.engine.name, sim.device, print
+    try:
+        return _timed_run(args, sim, engine_name, run_device, printer)
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _timed_run(args, sim, engine_name, run_device, printer) -> dict:
+    """Energy, the warm run and the timed run of ``sim``; ``printer``
+    prints (a no-op on every rank but 0 of a sharded run)."""
     e_method = "exact" if args.energy_exact else "auto"
     e0 = sim.energy(method=e_method) if args.energy else None
 
@@ -193,7 +241,7 @@ def main(argv=None) -> dict:
     sim.reset()
 
     if not args.json:
-        print("Running simulation without rendering...")
+        printer("Running simulation without rendering...")
 
     prof = contextlib.nullcontext()
     if args.profile:
@@ -213,14 +261,14 @@ def main(argv=None) -> dict:
 
     steps_per_second = args.steps / elapsed
     result = {
-        "engine": sim.engine.name,
+        "engine": engine_name,
         "n": args.num_points,
         "steps": args.steps,
         "elapsed_s": elapsed,
         "steps_per_second": steps_per_second,
         "n_alive": sim.n_alive,
-        "device": (torch.cuda.get_device_name(sim.device)
-                   if sim.device.type == "cuda" else "cpu"),
+        "device": (torch.cuda.get_device_name(run_device)
+                   if run_device.type == "cuda" else "cpu"),
     }
     if args.energy:
         e1 = sim.energy(method=e_method)
@@ -231,15 +279,15 @@ def main(argv=None) -> dict:
         sim.save(args.save)
         result["checkpoint"] = args.save
     if args.json:
-        print(json.dumps(result))
+        printer(json.dumps(result))
     else:
-        print(f"Elapsed: {elapsed:.3f}s")
-        print(f"Performance: {steps_per_second:.2f} steps/second")
+        printer(f"Elapsed: {elapsed:.3f}s")
+        printer(f"Performance: {steps_per_second:.2f} steps/second")
         if args.energy:
             note = ("" if result["energy_method"] == "exact" else
                     " [tree estimator: drifts <~1e-4 may be estimator "
                     "bias — use --energy-exact to measure drift]")
-            print(f"Energy: {e0:.9e} -> {result['energy_final']:.9e} "
+            printer(f"Energy: {e0:.9e} -> {result['energy_final']:.9e} "
                   f"(|drift| {result['energy_drift']:.3e}, "
                   f"{result['energy_method']}){note}")
     return result

@@ -72,8 +72,10 @@ from nbody_tpu_torch.ops.tree import (
 )
 from nbody_tpu_torch.ops.work import LOCK
 
-# the ROADMAP.md item of what the port leaves out (queue 1)
-ROADMAP_PARALLEL = "ROADMAP.md, queue 1, item 17"
+# the ROADMAP.md items of what the port leaves out (queue 1): the wide row
+# format, and the refined domain route (parallel/sharded.py)
+ROADMAP_WIDE = "ROADMAP.md, queue 1, item 17c"
+ROADMAP_REFINED_DOMAIN = "ROADMAP.md, queue 1, item 17e"
 
 # profile='dense' field stack (auto_for / make_bh_engine / --dense), as in
 # the JAX package (traversal.py:66)
@@ -185,7 +187,7 @@ class BHConfig:
     same defaults and checks (``nbody_tpu/ops/traversal.py:266-548``; the
     comments there record how each default was tuned on a TPU v5e).
     ``wide`` (the domain path's N >= 2^24 row format) raises
-    ``NotImplementedError``: it comes with the sharded paths."""
+    ``NotImplementedError``."""
 
     max_level: int = 7
     dim: int = 3
@@ -256,7 +258,7 @@ class BHConfig:
             raise ValueError("fb_quad=True requires quad_leaf=True")
         if self.wide:
             _unported("wide (the N >= 2^24 domain row format)",
-                      ROADMAP_PARALLEL)
+                      ROADMAP_WIDE)
         if self.multipole not in ("quad", "mono"):
             raise ValueError(
                 f"multipole must be 'quad' or 'mono', got {self.multipole!r}")
@@ -500,7 +502,7 @@ def _fb_inside(fb, gidx, dtype, tcell=None):
     guard either way.  The wide form (the targets' leaf codes ``tcell``)
     belongs to the N >= 2^24 row format."""
     if tcell is not None:
-        _unported("the wide fb containment test (tcell)", ROADMAP_PARALLEL)
+        _unported("the wide fb containment test (tcell)", ROADMAP_WIDE)
     ti = gidx.to(dtype)[:, :, None]
     return (fb[:, None, :, 4] <= ti) & (ti < fb[:, None, :, 5])
 
@@ -686,7 +688,8 @@ def _rmin2(com, gc, gh):
 
 
 def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
-                   window: int, gpos, gmass, gidx, sliding: bool = False):
+                   window: int, gpos, gmass, gidx, sliding: bool = False,
+                   local_bounds=None):
     """The collect walk for all G groups at once
     (``nbody_tpu/ops/traversal.py:1124-1526``).
 
@@ -700,12 +703,26 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     ranges ``rnear`` [G, RC, 2] / ``rnear_valid`` [G, RC] and the counter
     ``refine_near_totals`` [G] (their particles).  ``sliding``
     (``_sliding_ok``) leaves the window starts unclamped, as the
-    gather-free window assembly reads them."""
+    gather-free window assembly reads them.
+
+    ``local_bounds`` (lo, hi) (the domain decomposition,
+    ``parallel/domain.py``): the global sorted range this rank gathers
+    locally (its halo-extended slab).  Unexpandable leaf cells outside it
+    go to a separate far list under ``far_particle_cap`` /
+    ``far_cell_cap``, returned as ``far_ids`` / ``far_valid`` [G,
+    far_cell_cap] and fetched by a request/reply collective; overflow of
+    either list keeps the self-excluded fallback
+    (``nbody_tpu/ops/traversal.py:1283-1310``).  The refined levels have
+    no far route here (the refined domain route is ROADMAP.md, queue 1,
+    item 17e)."""
     G, B, _ = gpos.shape
     L = cfg.max_level
     W = window
     branch = cfg.branch
     dtype, dev = gpos.dtype, gpos.device
+    if local_bounds is not None and cfg.refine_levels:
+        _unported("refined levels on the domain walk",
+                  ROADMAP_REFINED_DOMAIN)
 
     # per-subgroup boxes over alive members (their union covers the group
     # tightly even where it straddles a Morton seam)
@@ -787,13 +804,30 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                 expand = expand & ~descend
             # leaf level: unexpandable cells join the exact near field while
             # they fit the particle and cell budgets (order-preserving
-            # prefix); the rest degrade to self-excluded monopoles
-            cnt = torch.where(expand, ce - cs, 0)
-            inc_l = (expand
+            # prefix); the rest degrade to self-excluded monopoles.  A
+            # domain walk splits them by gather locality: cells inside the
+            # rank's halo slab take the near budgets, Morton-far seam cells
+            # the far ones
+            exp_l = expand
+            if local_bounds is not None:
+                is_local = ((cs >= local_bounds[0])
+                            & (ce <= local_bounds[1]))
+                exp_l = expand & is_local
+                exp_f = expand & ~is_local
+                cnt_f = torch.where(exp_f, ce - cs, 0)
+                expand_far = (exp_f
+                              & (torch.cumsum(cnt_f, 1)
+                                 <= cfg.far_particle_cap)
+                              & (torch.cumsum(exp_f.to(torch.int32), 1)
+                                 <= cfg.far_cell_cap))
+            cnt = torch.where(exp_l, ce - cs, 0)
+            inc_l = (exp_l
                      & (torch.cumsum(cnt, 1) <= cfg.near_particle_cap)
-                     & (torch.cumsum(expand.to(torch.int32), 1)
+                     & (torch.cumsum(exp_l.to(torch.int32), 1)
                         <= cfg.near_cell_cap))
             overflowed = expand & ~inc_l
+            if local_bounds is not None:
+                overflowed = overflowed & ~expand_far
             n_fallback = overflowed.sum(dim=1, dtype=torch.int32)
             expand = inc_l
 
@@ -824,6 +858,9 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         else:
             near_ids, near_valid, _ = _compact(ids, expand,
                                                cfg.near_cell_cap)
+            if local_bounds is not None:
+                far_ids, far_valid, _ = _compact(ids, expand_far,
+                                                 cfg.far_cell_cap)
             if R:
                 rids, rvalid = _children(rbase, descend, rf_parent_cap,
                                          branch)
@@ -901,6 +938,8 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                wmask=wmask, wstart=wstart, center=center, fb=fb[:, :FB],
                accept_dropped=a_dropped, frontier_fallback=f_fallback,
                near_fallback=n_fallback, fb_spill=fb_spill)
+    if local_bounds is not None:
+        out.update(far_ids=far_ids, far_valid=far_valid)
     if R:
         out.update(rnear=rnear[:, :RC],
                    rnear_valid=(torch.arange(RC, **i32)[None, :]
@@ -1185,16 +1224,16 @@ def _self_square_eval(tgt8, mcen, g, eps2, g_soft, cfg: BHConfig, mode):
         for t8, mc in ((tgt8[s:s + cg], mcen[s:s + cg]) for s in starts)])
 
 
-def _split_window(pmass8, tgt8, wstart, wmask, W: int):
+def _split_window(pmass8, tgt8, wstart, wmask, W: int, gstart):
     """``near_sym`` assembly: the window minus the group's own B rows.
     The group sits at columns [off, off + B) of its window, off = group
-    start - wstart (in [0, W - B] by the window clamp).  Returns the rim
-    rows [G, W - B, 8] (masses under the window mask) and the group's own
-    masses under the same mask, ``mcen`` [G, B], the weights of the self
-    square."""
+    start ``gstart`` [G] - wstart (in [0, W - B] by the window clamp).
+    Returns the rim rows [G, W - B, 8] (masses under the window mask) and
+    the group's own masses under the same mask, ``mcen`` [G, B], the
+    weights of the self square."""
     G, B, _ = tgt8.shape
     dev = tgt8.device
-    off = (torch.arange(G, device=dev) * B - wstart).to(torch.int32)
+    off = (gstart - wstart).to(torch.int32)
     k = torch.arange(W - B, dtype=torch.int32, device=dev)[None, :]
     rimrel = (k + B * (k >= off[:, None])).long()  # [G, W - B]
     rrows = pmass8[wstart[:, None].long() + rimrel]
@@ -1226,8 +1265,16 @@ def _window_rows(pmass8, wstart, wmask, W: int, cfg: BHConfig = None,
     covered cells: a gather at each group's clamped start, or with
     ``sliding`` three shifted reshapes of the rows (the left pad, the
     group, the right pad; zero rows past the array's ends), matching the
-    walk's unclamped starts."""
-    if sliding:
+    walk's unclamped starts.  A shard's groups (fewer than the rows hold)
+    take the same rows by a gather from the zero-padded rows."""
+    if sliding and wstart.shape[0] * cfg.group_size != pmass8.shape[0]:
+        p = cfg.window_pad
+        padded = torch.cat([pmass8.new_zeros((p, 8)), pmass8,
+                            pmass8.new_zeros((p, 8))])
+        idx = (wstart[:, None].long() + p
+               + torch.arange(W, device=pmass8.device))
+        wrows = padded[idx]
+    elif sliding:
         B, p = cfg.group_size, cfg.window_pad
         G = pmass8.shape[0] // B
         wrows = pmass8.reshape(G, B, 8)
@@ -1253,17 +1300,19 @@ def _near_rows(pmass8, pidx, pvalid):
 
 
 def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
-                   g, eps2, g_soft, cfg: BHConfig, W: int, mode, mark):
+                   g, eps2, g_soft, cfg: BHConfig, W: int, mode, mark,
+                   gstart):
     """Slab assembly + force eval: window rows + near gather (+ the
     multipole slab for monopole runs) -> one pair pass with the block-dual
     far field (K3, K4 on the dual rows), the group's own square (K5, with
     ``near_sym``: the window rows are then the rim only), the accepted
-    nodes' quadrupoles (K4) and the fallback term.  Returns (acc [G, B, 3]
-    in sorted-group order, n_dual, slab_fill)."""
+    nodes' quadrupoles (K4) and the fallback term.  ``gstart`` [G] is
+    each group's first sorted index.  Returns (acc [G, B, 3] in
+    sorted-group order, n_dual, slab_fill)."""
     nrows = _near_rows(pmass8, pidx, pvalid)
     if cfg.near_sym:
         wrows, mcen = _split_window(pmass8, tgt8, walk["wstart"],
-                                    walk["wmask"], W)
+                                    walk["wmask"], W, gstart)
     else:
         wrows = _window_rows(pmass8, walk["wstart"], walk["wmask"], W, cfg,
                              _sliding_ok(cfg, W))
@@ -1316,10 +1365,14 @@ def _pack(tree, g_soft, cfg: BHConfig, n: int):
     return eps2, pmass8, tgt8, gidx, W
 
 
-def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int):
-    """``_pack`` and the collect walk for every group.  Returns (eps2,
-    pmass8 [n_tot, 8], tgt8 [G, B, 8], gidx [G, B], W, walk)."""
+def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int,
+          groups: slice = None):
+    """``_pack`` and the collect walk for every group, or for the
+    ``groups`` slice of them (a shard's).  Returns (eps2, pmass8 [n_tot,
+    8], tgt8 [G, B, 8], gidx [G, B], W, walk) with G the groups walked."""
     eps2, pmass8, tgt8, gidx, W = _pack(tree, g_soft, cfg, n)
+    if groups is not None:
+        tgt8, gidx = tgt8[groups], gidx[groups]
     if cfg.refine_levels and tree.refine_tables is None:
         raise ValueError(
             "cfg.refine_levels > 0 but the tree was built without "
@@ -1417,14 +1470,27 @@ def _unsort(acc, tree, cfg: BHConfig, n: int):
 
 
 def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
-                  mark=None, return_topo: bool = False):
+                  mark=None, return_topo: bool = False, chunk_range=None,
+                  n_shards: int = 1):
     """Group traversal + force over a built tree: collect walk -> slab
     assembly (window rows + near gather + multipole slab) -> one eval pass
     -> scatter back to the original particle order.
 
     Returns (acc [n, dim] in original order, stats), and the walk's
     ``WalkTopo`` after them with ``return_topo``.  ``mark``, if given, is
-    called with a phase name at each phase boundary (on-card timing)."""
+    called with a phase name at each phase boundary (on-card timing).
+
+    Sharded mode (``nbody_tpu/ops/traversal.py:2161``): with
+    ``chunk_range=(first_chunk,)`` only this shard's 1/``n_shards`` of the
+    chunks of ``chunk_groups`` groups, from ``first_chunk`` on, is walked
+    and evaluated, and acc is that slice [n_tot / n_shards, 3] in sorted
+    order, for the caller to gather and un-permute.  Unlike the JAX
+    package, which takes its single-chip tail at ``n_shards == 1``, the
+    slice is returned whenever ``chunk_range`` is given, so a one-rank
+    mesh un-permutes once."""
+    sharded = chunk_range is not None
+    if sharded and return_topo:
+        raise ValueError("return_topo is a single-chip feature")
     if cfg.refine_levels and return_topo:
         raise ValueError(
             "walk-topology caching (walk_every > 1 / bh-lazy) does not "
@@ -1433,8 +1499,18 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
     mark = mark or _no_mark
     dtype = tree.pos_s.dtype
     mode = _resolve_eval_mode(cfg, tree.pos_s)
+    groups = None
+    if sharded:
+        block = cfg.group_size * cfg.chunk_groups
+        n_chunks = (n + (-n) % block) // block
+        if n_chunks % n_shards:
+            raise ValueError(f"{n_chunks} chunks of {cfg.chunk_groups} "
+                             f"groups do not split over {n_shards} shards")
+        first = int(chunk_range[0]) * cfg.chunk_groups
+        groups = slice(first,
+                       first + n_chunks // n_shards * cfg.chunk_groups)
     eps2, pmass8, tgt8, gidx, W, walk = _walk(tree, bounds, theta2, g_soft,
-                                              cfg, n)
+                                              cfg, n, groups)
     mark("walk")
     acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2,
                       _fb_all_quad(tree, cfg), cfg.branch)
@@ -1443,8 +1519,8 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
     pidx, pvalid, ntot = _near_lists(tree, walk, cfg)
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2, g, eps2,
-        g_soft, cfg, W, mode, mark)
-    out = _unsort(acc, tree, cfg, n)
+        g_soft, cfg, W, mode, mark, gidx[:, 0])
+    out = acc.reshape(-1, 3) if sharded else _unsort(acc, tree, cfg, n)
     mark("scatter")
     stats = {
         **_walk_counters(walk),
@@ -1518,7 +1594,7 @@ def traverse_tree_cached(tree, topo: WalkTopo, theta2, g, g_soft,
                 center=_group_center(tgt8[..., :3], tgt8[..., 3]))
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, topo.pidx, topo.pvalid, acc_fb, theta2, g,
-        eps2, g_soft, cfg, W, mode, mark)
+        eps2, g_soft, cfg, W, mode, mark, gidx[:, 0])
     out = _unsort(acc, tree, cfg, n)
     mark("scatter")
     zero = torch.zeros((), dtype=torch.int64, device=out.device)

@@ -314,7 +314,7 @@ def _check_range_dtype(n: int, ftype) -> None:
         raise ValueError(
             f"N={n} exceeds the exact-integer range of {ftype} node tables; "
             "use float64 for N >= 2^24 (the wide row format of the domain "
-            "path is ROADMAP.md, queue 1, item 17)"
+            "path is ROADMAP.md, queue 1, item 17c)"
         )
 
 
@@ -358,7 +358,7 @@ def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
 
 
 def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
-                 quad: bool = False, quad_leaf: bool = False,
+                 quad: bool = False, quad_leaf: bool = True,
                  refine_levels: int = 0, refine_cap: int = 8192,
                  refine_threshold: int = 512, mark=None) -> LinearOctree:
     """pos [N, D], mass [N] (dead particles already at mass 0) -> the
@@ -367,9 +367,9 @@ def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
 
     ``dim=2`` builds a quadtree (2D Morton codes, 4 children a cell); the
     stored coordinates stay 3-wide with z = 0, so the walk and the kernels
-    see 3D rows.  ``quad_leaf=True`` builds the leaf level's second moments
-    too (the JAX package's default; this package's is False, the engines'
-    setting).
+    see 3D rows.  ``quad_leaf=True`` (the default, as in the JAX package)
+    builds the leaf level's second moments too; the engines pass their
+    config's value (``BHConfig.quad_leaf``, False by default).
 
     ``refine_levels > 0`` adds up to that many density-adaptive levels below
     the leaf grid for cells holding more than ``refine_threshold``
@@ -445,8 +445,104 @@ def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
                         **refine)
 
 
+def _slice_starts(leaf_starts, lo: int, n: int):
+    """Global leaf boundaries ``leaf_starts`` clipped to the sorted slots
+    [lo, lo + n) and made relative to lo: the leaf boundaries of one
+    rank's contiguous sorted slice."""
+    return torch.clamp(leaf_starts - lo, 0, n)
+
+
+def build_octree_sharded(pos_loc, mass_loc, pos_all, mass_all, bounds,
+                         max_level: int, mesh, dim: int = 3,
+                         quad: bool = False, quad_leaf: bool = True,
+                         refine_levels: int = 0, refine_cap: int = 8192,
+                         refine_threshold: int = 512) -> LinearOctree:
+    """The replicated octree built across the mesh
+    (``nbody_tpu/ops/tree.py:626``): every rank gets the tree
+    ``build_octree(pos_all, mass_all, ...)`` gives, with the same stable
+    sort and exact integer counts.
+
+    ``pos_loc`` / ``mass_loc`` are this rank's shard (dead particles at mass
+    0), ``pos_all`` / ``mass_all`` the already all-gathered arrays.  Each
+    rank Morton-encodes its shard and the codes are gathered; one stable
+    sort of them (the index breaks ties, as ``lax.sort`` of (codes, iota)
+    does) gives every rank the order; each rank gathers the sorted rows of
+    its slice, and the leaf statistics (counts, mass, m·pos and the
+    quadrupole moments) are its slice's sums, merged by ``psum``.  The
+    sums are the build's own double-float range differences over the
+    slice's leaf boundaries, so at world size 1 the tree is
+    ``build_octree``'s bit for bit; across ranks they differ from it by the
+    merge's association only.  ``refine_levels > 0`` runs the refined build
+    replicated on the gathered sorted arrays, bit-identical to
+    ``build_octree``'s on every rank."""
+    from nbody_tpu_torch.parallel import collectives as coll
+
+    n_loc = pos_loc.shape[0]
+    n_tot = pos_all.shape[0]
+    _check_range_dtype(n_tot, pos_all.dtype)
+    branch = 1 << dim
+    l_deep = max_level + refine_levels
+    limit = morton.MAX_LEVEL_3D if dim == 3 else morton.MAX_LEVEL_2D
+    if l_deep > limit:
+        raise ValueError(
+            f"max_level + refine_levels = {l_deep} exceeds the {dim}D "
+            f"Morton code depth limit ({limit})")
+    n_leaf = branch ** max_level
+    gb = grid_bounds(bounds, max_level)
+    lo = mesh.rank * n_loc
+
+    codes_loc = morton.cell_codes(pos_loc[:, :dim], gb, l_deep)
+    codes_loc = torch.where(mass_loc > 0, codes_loc, branch ** l_deep)
+    codes = coll.all_gather(codes_loc, mesh)
+    deep_code_s, order = torch.sort(codes, stable=True)
+    code_s = deep_code_s >> (dim * refine_levels)
+    if dim == 2:
+        pos_all = torch.cat([pos_all, pos_all.new_zeros((n_tot, 1))], dim=1)
+
+    # the sorted-order gather, each rank its slice
+    order_my = order[lo:lo + n_loc]
+    pos_s_my, mass_s_my = pos_all[order_my], mass_all[order_my]
+    pos_s = coll.all_gather(pos_s_my, mesh)
+    mass_s = coll.all_gather(mass_s_my, mesh)
+
+    leaf_starts = torch.searchsorted(
+        code_s, torch.arange(n_leaf + 1, dtype=torch.int32,
+                             device=pos_all.device)).to(torch.int32)
+    starts_my = _slice_starts(leaf_starts, lo, n_loc)
+    _t, mass_my, mpos_my = _leaf_stats(pos_s_my, mass_s_my, starts_my)
+    leaf_counts = coll.psum(starts_my[1:] - starts_my[:-1], mesh)
+    leaf_mass = coll.psum(mass_my, mesh)
+    leaf_mpos = coll.psum(mpos_my, mesh)
+    level_mass, level_mpos, level_table = _pyramid_tables(
+        leaf_mass, leaf_mpos, leaf_counts, max_level, branch, pos_all.dtype)
+
+    all_quad = None
+    if quad:
+        q, top = _build_quad(pos_s_my, mass_s_my, starts_my, max_level,
+                             branch, quad_leaf)
+        all_quad = _quad_pyramid(coll.psum(q, mesh), top, branch,
+                                 pos_all.dtype)
+
+    refine = {}
+    if refine_levels > 0:
+        table = _build_prefix_table(
+            torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
+        tables, slot_leaf, child_maps, rstats = _build_refined(
+            table, deep_code_s, leaf_starts[1:] - leaf_starts[:-1],
+            max_level, refine_levels, refine_cap, refine_threshold, branch,
+            dim, pos_all.dtype)
+        refine = dict(refine_tables=tables, refine_slot_leaf=slot_leaf,
+                      refine_child_slot=child_maps, refine_stats=rstats)
+
+    return LinearOctree(pos_s=pos_s, mass_s=mass_s, code_s=code_s,
+                        order=order, leaf_starts=leaf_starts,
+                        level_mass=level_mass, level_mpos=level_mpos,
+                        level_table=level_table, all_quad=all_quad,
+                        **refine)
+
+
 def refresh_octree(tree: LinearOctree, pos, mass, quad: bool = None,
-                   quad_leaf: bool = False) -> LinearOctree:
+                   quad_leaf: bool = True) -> LinearOctree:
     """Node statistics from the current positions over the frozen binning
     of ``tree`` (sort order, cell assignment, ranges): the lazy engine's
     and walk reuse's refresh (``nbody_tpu/ops/tree.py:782``).  No sort;

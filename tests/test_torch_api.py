@@ -143,14 +143,16 @@ def test_unknown_device_and_engine():
                                   ["--adaptive"],
                                   ["--refine", "2"], ["--walk-every", "3"]])
 def test_cli_unported_flags_exit(flag):
-    """The flag of the path not ported yet (--devices, item 17) exits
-    naming the path.  --adaptive, --refine (item 15) and --walk-every
-    (item 16) are ported: on the default engine 'auto' they exit with the
-    JAX package's message, and on a bh engine they run 2 steps of a small
-    Plummer sphere on the CPU."""
+    """--devices 2 without a process group of world size 2 (none, or the
+    one-rank group an in-process sharded run makes) exits naming the
+    launcher; the sharded run itself is tests/test_torch_sharded.py's.
+    --adaptive, --refine (item 15) and --walk-every (item 16) are ported:
+    on the default engine 'auto' they exit with the JAX package's message,
+    and on a bh engine they run 2 steps of a small Plummer sphere on the
+    CPU."""
     argv = ["-n", "10", "--steps", "1", "--cpu", *flag]
     if "--devices" in flag:
-        with pytest.raises(SystemExit, match="not yet ported"):
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
             cli.main(argv)
         return
     if "--engine" not in flag:
@@ -251,7 +253,7 @@ def test_compile_runs_one_step_and_keeps_the_state(compensated):
 def test_save_load_take_the_jax_format_argument(fmt, tmp_path):
     """save/load take the JAX signature's ``format``: the pickle is
     ported (and read by the JAX package), orbax raises naming its ROADMAP
-    item, anything else is refused."""
+    item (17d), anything else is refused."""
     sim = make(100)
     sim.run(2)
     path = str(tmp_path / "ckpt")
@@ -267,7 +269,7 @@ def test_save_load_take_the_jax_format_argument(fmt, tmp_path):
                                       sim.state.pos.numpy())
         return
     err = NotImplementedError if fmt == "orbax" else ValueError
-    match = "item 17" if fmt == "orbax" else "'pickle' or 'orbax'"
+    match = "item 17d" if fmt == "orbax" else "'pickle' or 'orbax'"
     with pytest.raises(err, match=match):
         sim.save(path, format=fmt)
     with pytest.raises(err, match=match):

@@ -678,7 +678,7 @@ def test_cached_slabs_and_forces_on_card(dev, monkeypatch):
     calls = []
     _capture(monkeypatch, calls)
     fresh = ttree.refresh_octree(tree, st.pos - p.bounds.center, m,
-                                 quad=True)
+                                 quad=True, quad_leaf=cfg.quad_leaf)
     cached, _ = tt.traverse_tree_cached(fresh, topo, p.theta2, p.g, p.g_soft,
                                         cfg, st.capacity)
     monkeypatch.undo()

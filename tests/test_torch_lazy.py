@@ -88,7 +88,8 @@ def test_bh_accel_lazy_matches_jax(shift, rebuilt):
                              jp.bounds.centered(), 5, quad=True,
                              quad_leaf=False)
     ttr = ttree.build_octree(ts.pos - tp.bounds.center, tm,
-                             tp.bounds.centered(), 5, quad=True)
+                             tp.bounds.centered(), 5, quad=True,
+                             quad_leaf=False)
     moved = np.array(js.pos)
     moved[:, 0] += shift
     want, wstats, _ = jt.bh_accel_lazy(

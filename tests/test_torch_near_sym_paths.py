@@ -55,7 +55,8 @@ def test_split_window_edges():
     wmask = torch.ones((G, W), dtype=torch.bool)
     wmask[1, 0] = False  # the first rim row of group 1
     wmask[2, 5] = False  # a central row of group 2 (off = 4)
-    rim, mcen = tt._split_window(pmass8, tgt8, wstart, wmask, W)
+    rim, mcen = tt._split_window(pmass8, tgt8, wstart, wmask, W,
+                                 torch.arange(G) * B)
     rows = rim[..., 0].long() // 8
     assert rows.tolist() == [[8, 9, 10, 11, 12, 13, 14, 15],
                              [4, 5, 6, 7, 16, 17, 18, 19],

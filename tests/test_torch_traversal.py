@@ -168,15 +168,15 @@ def test_theta_zero_is_the_direct_sum():
     ("quad_leaf", True, "item 18"), ("fb_quad", True, "item 18"),
     ("dim", 2, "item 18")])
 def test_unported_fields_raise(field, value, item):
-    """Only the field of the path not ported yet (wide, item 17) raises,
+    """Only the field of the path not ported yet (wide, item 17c) raises,
     naming its ROADMAP item.  The others (items 15, 16, 18) are ported:
     each is accepted as the JAX package accepts it, the config equals the
     JAX package's, and JAX's own checks raise with JAX's texts
     (fb_quad without quad_leaf; the Morton depth limit, 10 in 3D, 15 in
     2D; refine_frontier a multiple of the branch factor)."""
     if item == "item 17":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, "
-                           f"{item}"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, queue 1, item 17c"):
             tt.BHConfig(**{field: value})
         return
     kw = {field: value}

@@ -40,7 +40,7 @@ def trees(request):
                              Bounds.cube([0.0, 0.0, 0.0], 10.0,
                                          dtype=getattr(torch, dtype),
                                          device="cpu"),
-                             level, quad=True)
+                             level, quad=True, quad_leaf=False)
     return level, dtype, ref, got
 
 
@@ -106,3 +106,29 @@ def test_prefix_scan_keeps_one_particle_leaves_exact():
     assert int(tree.leaf_starts[leaf + 1] - tree.leaf_starts[leaf]) == 1
     com = tree.level_mpos[7][leaf] / tree.level_mass[7][leaf]
     np.testing.assert_allclose(com.numpy(), pos[0], rtol=2e-7)
+
+
+@pytest.mark.parametrize("level", [4, 7])
+def test_default_quad_call_builds_leaf_moments_as_jax(level):
+    """``build_octree(..., quad=True)`` with ``quad_leaf`` left at its
+    default builds the leaf level's second moments, as the JAX package's
+    default does (``nbody_tpu/ops/tree.py:509``): the same table shape,
+    statistics in f64 to the module's tolerance, and ``refresh_octree``'s
+    default the same."""
+    st, _, _, _, _ = disc(3000, 4096, kill=37)
+    pos = np.array(st.pos.astype(jnp.float64))
+    mass = np.array(st.effective_mass().astype(jnp.float64))
+    ref = jtree.build_octree(jnp.asarray(pos), jnp.asarray(mass),
+                             JaxBounds.cube([0.0, 0.0, 0.0], 10.0,
+                                            dtype=jnp.float64),
+                             level, quad=True)
+    b = Bounds.cube([0.0, 0.0, 0.0], 10.0, dtype=torch.float64, device="cpu")
+    got = ttree.build_octree(torch.from_numpy(pos), torch.from_numpy(mass), b,
+                             level, quad=True)
+    m_all = np.concatenate([np.asarray(m) for m in ref.level_mass])
+    assert got.all_quad.shape == ref.all_quad.shape == (m_all.shape[0], 8)
+    d = np.abs(got.all_quad.numpy() - np.asarray(ref.all_quad))
+    assert np.all(d <= RTOL["float64"] * m_all[:, None] * HALF * HALF)
+    fresh = ttree.refresh_octree(got, torch.from_numpy(pos),
+                                 torch.from_numpy(mass))
+    assert torch.equal(fresh.all_quad, got.all_quad)

@@ -73,7 +73,8 @@ def test_cached_matches_full_when_static(cfg):
         tree, params.bounds, params.theta2, params.g, params.g_soft, cfg, n,
         return_topo=True)
     tree_r = ttree.refresh_octree(tree, st.pos, m,
-                                  quad=cfg.multipole == "quad")
+                                  quad=cfg.multipole == "quad",
+                                  quad_leaf=cfg.quad_leaf)
     a_cached, s_cached = tt.traverse_tree_cached(
         tree_r, topo, params.theta2, params.g, params.g_soft, cfg, n)
     np.testing.assert_allclose(a_cached.numpy(), a_full.numpy(), rtol=1e-12,
