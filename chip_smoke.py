@@ -119,7 +119,8 @@ printing one line and stopping the script with a non-zero exit on failure:
      ``ShardedSimulation`` on ``allgather`` and ``ring`` (the 65536 disc,
      K2) and on ``bh`` (the domain decomposition) and ``bh-replicated``
      (the 2^20 disc, K3 and K4): each force call against the single-chip
-     engine's on the same state, without a host sync; the sharded exact
+     engine's on the same state, without a host sync; K3 and K4 against
+     their twins on each strategy's slabs; the sharded exact
      energy, drift, the bh envelope against the K2 oracle, steps/s beside
      the single-chip engines.
 
@@ -1241,10 +1242,12 @@ def sharded_phase():
     K3 and K4 every step, one force call against the single-chip ``bh``
     force on the same state (the reading printed, held to 1e-5: at world
     size 1 the window lies inside the shard and the walks are the same),
-    the final state against the K2 oracle within the bh envelope, drift
-    through the tree estimator finite and below 5e-3, steps/s beside plain
-    ``bh``, and one ``bh`` (domain) force call split at its phase marks
-    beside plain ``bh``'s.  Every sharded force call enqueues without a
+    K3 and K4 against their plain twins on the slabs each strategy builds
+    (the domain slab carries the capped far rows) and K3's time there
+    beside its bound, the final state against the K2 oracle within the bh
+    envelope, drift through the tree estimator finite and below 5e-3,
+    steps/s beside plain ``bh``, and one ``bh`` (domain) force call split
+    at its phase marks beside plain ``bh``'s.  Every sharded force call enqueues without a
     host sync (``torch.cuda.set_sync_debug_mode("error")``).  Returns the launches of
     the runs and the readings for the kernels line."""
     import torch
@@ -1259,7 +1262,7 @@ def sharded_phase():
     from nbody_tpu_torch.parallel.sharded import make_sharded_force
     from nbody_tpu_torch.scenes import self_gravitating_disc
 
-    out = {"k2": 0, "k3": 0, "k4": 0}
+    out = {"k2": 0, "k3": 0, "k4": 0, "k3_abs": 0.0, "k4_abs": 0.0}
     parts = []
     common = dict(dt=3e-2, g_soft=EPS, theta2=1.0, device="cuda")
 
@@ -1332,11 +1335,32 @@ def sharded_phase():
         st = sim.state
         require(st.capacity == plain.state.capacity, "bh capacities")
         m = st.effective_mass()
-        acc = no_sync_force(sim, strategy)
+        got = {}
+        calls = record_calls(lambda: got.update(
+            acc=no_sync_force(sim, strategy)))
+        acc = got.pop("acc")
         ref = plain.engine.force(st.pos, m, plain.settings)
         e_force = rel_err(acc, ref)
         require(e_force < 1e-5, f"{strategy} vs bh: {e_force:.3e}")
         bitwise = torch.equal(acc, ref)
+        # K3 and K4 against their twins on the slabs this strategy builds
+        # (the domain slab: window, near rows and the capped far rows)
+        a3, k3 = calls["group_force"][0]
+        a4, k4 = calls["quad_force"][0]
+        e3, abs3 = k3_check(*pick(a3, k3, [0, a3[0].shape[0] // 2]),
+                            f"{strategy} slab")
+        e4, abs4 = k4_check(*pick(a4, k4, [busiest(a4[1])]),
+                            f"{strategy} slab")
+        out["k3_abs"] = max(out["k3_abs"], abs3)
+        out["k4_abs"] = max(out["k4_abs"], abs4)
+        k3_ms = ms(lambda: gf.group_force(*a3, **k3), 5)
+        k3_bnd = k3_bound(a3[0], a3[1], k3["tile"], k3["mask"])
+        slabs = (f"K3 {len(calls['group_force'])}x on slab "
+                 f"{tuple(a3[0].shape)} x {tuple(a3[1].shape)}: vs plain "
+                 f"{e3:.2e}, {k3_ms:.3f} ms (bound {k3_bnd[0]:.3f} ms); K4 "
+                 f"{len(calls['quad_force'])}x on {tuple(a4[1].shape)}: "
+                 f"vs plain {e4:.2e}")
+        del calls, a3, k3, a4, k4
         split = ""
         if strategy == "bh":
             prm, cfg = sim.settings, sim._bh_config
@@ -1377,7 +1401,7 @@ def sharded_phase():
             f"{SHARD_BH_STEPS + 1} steps, {rate:.3f} steps/s (plain bh "
             f"{rate_plain:.3f}), force vs single-chip bh {e_force:.2e} "
             f"(bitwise {bitwise}), final state vs K2 median {med:.3e} p99 "
-            f"{p99:.3e}, drift {drift:.3e} (tree estimator){split}")
+            f"{p99:.3e}, drift {drift:.3e} (tree estimator); {slabs}{split}")
         del sim, st, acc, ref
     del plain
     dist.destroy_process_group()
@@ -2766,7 +2790,8 @@ def main() -> int:
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force"] for c in bh_runs) + sharded["k3"],
               max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"],
-                  reuse["k3_abs"]), k3_ms, k3_plain, k3_bnd),
+                  reuse["k3_abs"], sharded["k3_abs"]), k3_ms, k3_plain,
+              k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force_masked"] for c in bh_runs),
@@ -2775,7 +2800,8 @@ def main() -> int:
         entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:362", k4_launches,
               max(k4_abs, adaptive["k4_abs"], vis["quad_force_abs"],
-                  reuse["k4_abs"]), k4_ms, k4_plain, k4_bnd),
+                  reuse["k4_abs"], sharded["k4_abs"]), k4_ms, k4_plain,
+              k4_bnd),
         entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
               "nbody_tpu/ops/group_force.py:250",
               sum(c["group_self_force"] for c in sym_launches.values()),

@@ -18,10 +18,10 @@ by ``parallel/collectives.py``:
    Dead rows carry the sentinel code 8^L and sort to the global tail.
 2. **Ring routing** (``_ring_route``): rows travel the ring for ``world``
    hops; each rank keeps those whose sorted slot it owns.
-3. **Leaf statistics**: each rank's sums over its contiguous sorted slice,
-   merged by ``psum``.  The slice sums are double-float range differences
-   (``ops/tree.py`` ``_leaf_stats``) where JAX segment-sums: deterministic,
-   with no float atomics on the card; the pyramid above the leaves is
+3. **Leaf statistics**: each rank's segment sums over its contiguous
+   sorted slice, merged by ``psum``, as JAX's (``ops/tree.py``
+   ``_segment_leaf_stats``: each leaf summed in row order in float64, no
+   float atomics on the card); the pyramid above the leaves is
    replicated.
 4. **Halo exchange**: one ring shift each way gives every rank the
    ``halo`` rows on either side of its slice, zeros at the global edges.
@@ -66,9 +66,9 @@ from nbody_tpu_torch.ops.traversal import (
 from nbody_tpu_torch.ops.tree import (
     _build_quad,
     _check_range_dtype,
-    _leaf_stats,
     _pyramid_tables,
     _quad_pyramid,
+    _segment_leaf_stats,
     grid_bounds,
 )
 from nbody_tpu_torch.parallel import collectives as coll
@@ -130,7 +130,8 @@ def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
     """The distributed octree over this rank's shard
     (``domain.py:259``), steps 1-4 of the module docstring.  Its sorted
     permutation is the single-chip ``build_octree``'s; its leaf statistics
-    differ from it by the merge's association only."""
+    are JAX's segment sums, where ``build_octree`` takes double-float range
+    differences."""
     n_loc = pos_loc.shape[0]
     n_tot = n_loc * mesh.world
     _check_range_dtype(n_tot, pos_loc.dtype)
@@ -173,17 +174,18 @@ def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
                         code_s.to(ftype), zero, zero], dim=1)
     rows_s = _ring_route(rows, p, mesh)
 
-    # 4. leaf statistics: my slice's sums, merged by psum
+    # 4. leaf statistics: my slice's segment sums, merged by psum; the
+    #    sentinel rows lie past the last offset and drop out
     code_my = rows_s[:, 5].to(torch.int64)
     starts_my = torch.searchsorted(
         code_my, torch.arange(n_leaf + 1, dtype=torch.int64, device=dev))
-    _t, mass_my, mpos_my = _leaf_stats(rows_s[:, :3], rows_s[:, 3],
-                                       starts_my)
+    leaf = coll.psum(_segment_leaf_stats(rows_s[:, :3], rows_s[:, 3],
+                                         starts_my), mesh).to(ftype)
     leaf_counts = coll.psum((starts_my[1:] - starts_my[:-1]).to(torch.int32),
                             mesh)
-    _m, _p, level_table = _pyramid_tables(
-        coll.psum(mass_my, mesh), coll.psum(mpos_my, mesh), leaf_counts,
-        max_level, branch, ftype)
+    _m, _p, level_table = _pyramid_tables(leaf[:, 0], leaf[:, 1:4],
+                                          leaf_counts, max_level, branch,
+                                          ftype)
     all_quad = None
     if quad:
         q, top = _build_quad(rows_s[:, :3], rows_s[:, 3], starts_my,

@@ -76,6 +76,7 @@ def ranks(tmp_path_factory):
                 ("tree", "octree_sharded", {}),
                 ("tree_refined", "octree_sharded",
                  dict(refine_levels=2, refine_cap=64, refine_threshold=16)),
+                ("tree_sparse", "octree_sharded", dict(level=5)),
             ]
         out[world] = workers.spawn(world, tmp_path_factory.mktemp(
             f"ranks{world}"), cases)
@@ -157,8 +158,9 @@ def test_sharded_energy_matches_jax(ranks, world):
 @pytest.mark.parametrize("refined", [False, True])
 def test_octree_sharded_matches_build_octree(ranks, refined):
     """build_octree_sharded on 4 ranks: the order, codes and ranges exactly
-    the single-chip build's (the port's and the JAX package's), statistics
-    to the merge's association, refined tables bit for bit."""
+    the single-chip build's (the port's and the JAX package's); at 4N >=
+    8^L the node tables bit for bit (the single-chip sums, replicated), the
+    quadrupoles to the merge's association; refined tables bit for bit."""
     key = "tree_refined" if refined else "tree"
     got = ranks[4][0][key]
     for r in ranks[4][1:]:
@@ -176,8 +178,8 @@ def test_octree_sharded_matches_build_octree(ranks, refined):
         np.testing.assert_array_equal(got[k], np.asarray(getattr(jref, k)))
     np.testing.assert_array_equal(got["pos_s"], ref.pos_s.numpy())
     for a, b in zip(got["level_table"], ref.level_table):
-        np.testing.assert_array_equal(a[:, 4:], b[:, 4:].numpy())
-        np.testing.assert_allclose(a, b.numpy(), rtol=1e-12, atol=1e-14)
+        # 4N >= 8^L: the single-chip sums, replicated, bit for bit
+        np.testing.assert_array_equal(a, b.numpy())
     np.testing.assert_allclose(got["all_quad"], ref.all_quad.numpy(),
                                rtol=1e-12, atol=1e-14)
     if refined:
@@ -188,6 +190,34 @@ def test_octree_sharded_matches_build_octree(ranks, refined):
                                       ref.refine_stats.numpy())
         for a, b in zip(got["refine_tables"], ref.refine_tables):
             np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_octree_sharded_sparse_regime_matches_build_octree(ranks):
+    """Below JAX's dense-regime gate (4N < 8^L: 1024 slots at level 5) the
+    mass and m·pos are each rank's segment sums merged by psum: the order,
+    codes and ranges exactly the single-chip builds', statistics to
+    1e-12."""
+    got = ranks[4][0]["tree_sparse"]
+    for r in ranks[4][1:]:
+        np.testing.assert_array_equal(r["tree_sparse"]["level_table"][-1],
+                                      got["level_table"][-1])
+    st, params = workers._state(500, 1024, 2)
+    m = st.effective_mass()
+    ref = ttree.build_octree(st.pos, m, params.bounds, 5, quad=True)
+    jref = jtree.build_octree(jnp.asarray(st.pos.numpy()),
+                              jnp.asarray(m.numpy()), _jax_bounds(), 5,
+                              quad=True)
+    assert 4 * 1024 < 8 ** 5
+    for k in ("order", "code_s", "leaf_starts"):
+        np.testing.assert_array_equal(got[k], getattr(ref, k).numpy())
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jref, k)))
+    for a, b, c in zip(got["level_table"], ref.level_table,
+                       jref.level_table):
+        np.testing.assert_array_equal(a[:, 4:], b[:, 4:].numpy())
+        np.testing.assert_allclose(a, b.numpy(), rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(a, np.asarray(c), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(got["all_quad"], ref.all_quad.numpy(),
+                               rtol=1e-12, atol=1e-14)
 
 
 def _jax_bounds():
