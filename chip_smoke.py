@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs twenty-two phases, each
+(one nvcc per source, all at once), then runs twenty-three phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -123,6 +123,16 @@ printing one line and stopping the script with a non-zero exit on failure:
      their twins on each strategy's slabs; the sharded exact
      energy, drift, the bh envelope against the K2 oracle, steps/s beside
      the single-chip engines.
+ 23. the rest of the sharded path (``refined_domain_phase``) at world size
+     1 over NCCL: the refined domain route on the 2^20 Plummer deep stack
+     (``profile="adaptive"`` on strategy ``bh``: one force call against the
+     single-chip adaptive ``bh_accel``, the initial state's sampled p99,
+     K3 and K4 every step and against their twins on the refined domain
+     slab, no build drop, no host sync, steps/s beside phase 19's); the
+     wide row format forced on (``WIDE_N`` lowered) for one domain force
+     call on the 2^20 disc against the narrow call, K3 on the wide slab;
+     and ``torch.distributed.checkpoint`` round trips of the sphere's
+     ``ShardedSimulation`` and of a compensated ``Simulation``.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -388,6 +398,7 @@ def adaptive_phase():
         rate = STEPS_ADAPTIVE / (time.perf_counter() - t0)
         counts = gf.launch_counts()
         out["launches"][label] = counts
+        out.setdefault("rates", {})[label] = rate
         k3_runs = counts["group_force"] + counts["group_force_masked"]
         k4_per = 2 if cfg.block_dual else 1
         require(k3_runs >= STEPS_ADAPTIVE
@@ -1407,6 +1418,261 @@ def sharded_phase():
     dist.destroy_process_group()
     print(f"[22 sharded, world size 1] {nvidia_smi()} | " + " | ".join(parts),
           flush=True)
+    return out
+
+
+# phase 23: the refined domain route, the wide rows and the checkpoints of
+# the sharded path, at world size 1 over NCCL
+WIDE_N_FORCED = 1  # ops/tree.py WIDE_N lowered: every run takes wide rows
+DCP_STEPS = 4
+COMP_N = 65535  # + the star: the compensated round trip
+
+
+def dir_bytes(path) -> int:
+    """The bytes of the files under a directory."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def refined_domain_phase(single_rate=None):
+    """Phase 23, on a one-rank NCCL group.  (a) ``ADAPTIVE_RUNS[0]``, the
+    2^20 Plummer sphere at width 40, through ``ShardedSimulation(engine=
+    "bh", strategy="bh", engine_options={"profile": "adaptive"})``: the
+    resolved deep stack, one force call within 1e-5 of the single-chip
+    adaptive ``bh_accel`` on the same state (enqueued without a host
+    sync), its sampled p99 below 5e-2 against the K2 oracle, no refined
+    cell dropped by the build, K3 and K4 against their twins on the refined
+    domain slab (the group with the most refined-near rows among those
+    held), then 5 steps with K3 and K4 every step, steps/s beside phase
+    19's single-chip adaptive run (``single_rate``; measured here when
+    None).  (c) the sphere's ``ShardedSimulation`` saved (the default
+    format, a ``torch.distributed.checkpoint`` directory), run 4 steps and
+    loaded: positions and ``elapsed`` bitwise, and it steps on; a
+    compensated 65535 + star ``Simulation`` the same with
+    ``format="orbax"``, its low words bitwise.  (b) ``WIDE_N`` lowered so
+    the 1048575 + star disc takes the wide rows: one domain force call
+    within rtol 1e-6 of the narrow call with the same walk counters, K3 on
+    the wide slab against its twin.  Returns the launches and readings for
+    the kernels line."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from nbody_tpu_torch import Simulation
+    from nbody_tpu_torch.ops import group_force as gf
+    from nbody_tpu_torch.ops import traversal as tt
+    from nbody_tpu_torch.ops import tree as ttree
+    from nbody_tpu_torch.parallel import ShardedSimulation
+    from nbody_tpu_torch.parallel.domain import domain_accel
+    from nbody_tpu_torch.scenes import plummer_sphere, self_gravitating_disc
+
+    out = {"k3": 0, "k4": 0, "k3_abs": 0.0, "k4_abs": 0.0}
+    parts = []
+    common = dict(dt=3e-2, g_soft=EPS, theta2=1.0, device="cuda")
+
+    def force(sim, cfg):
+        """One domain force call on the current state, refused any host
+        sync: (acc, stats)."""
+        st, prm = sim.state, sim.settings
+        m = st.effective_mass()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = domain_accel(st.pos, m, prm.bounds, prm.theta2, prm.g,
+                               prm.g_soft, cfg, sim.mesh)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return res
+
+    # (a) the refined domain route on the deep stack
+    label, n, width, stack, _jax_p99 = ADAPTIVE_RUNS[0]
+    pos, vel, mass = plummer_sphere(n, seed=0)
+    keep = np.all(np.abs(pos) <= 20.0, axis=1)
+    pos, vel, mass = pos[keep], vel[keep], mass[keep]
+    sim = ShardedSimulation(pos, vel, mass, engine="bh", strategy="bh",
+                            n_devices=1, capacity=n, bounds_width=width,
+                            engine_options={"profile": "adaptive"}, **common)
+    cfg = sim._bh_config
+    require(sim.mesh.world == 1 and dist.get_backend() == "nccl"
+            and sim.strategy == "bh", f"{label}: {sim.mesh}, {sim.strategy}")
+    require(all(getattr(cfg, k) == v
+                for k, v in getattr(tt, stack).items()),
+            f"{label}: profile='adaptive' resolved {cfg}")
+    st, prm = sim.state, sim.settings
+    m0 = st.effective_mass()
+    res = {}
+    calls = record_calls(lambda: res.update(d=force(sim, cfg)))
+    acc, stats = res["d"]
+    ref, rstats = tt.bh_accel(st.pos, m0, prm.bounds, prm.theta2, prm.g,
+                              prm.g_soft, cfg)
+    e_force = rel_err(acc, ref)
+    require(e_force < 1e-5, f"{label}: domain vs bh_accel {e_force:.3e}")
+    walk = {k: int(stats[k].sum()) for k in (
+        "accept_dropped", "near_fallback", "fb_spill", "refine_near_totals",
+        "refine_far_totals", "refine_build_dropped")}
+    require(walk["refine_build_dropped"] == 0 and walk["accept_dropped"] == 0
+            and walk["refine_near_totals"] > 0, f"{label}: walk {walk}")
+    single_rnt = int(rstats["refine_near_totals"].sum())
+    med0, p99_0 = sampled_error(st.pos, m0, st.alive, acc)
+    require(p99_0 < 5e-2, f"{label}: sampled p99_typ {p99_0:.4f}")
+    rnt = stats["refine_near_totals"]
+    (a3, k3), = calls["group_force"]
+    G_ = a3[0].shape[0]
+    sel = sorted({0, G_ // 2, G_ - 1, int(rnt.argmax())})
+    e3, abs3 = k3_check(*pick(a3, k3, sel), f"{label} refined domain slab")
+    k3_ms = ms(lambda: gf.group_force(*a3, **k3), 5)
+    k3_bnd = k3_bound(a3[0], a3[1], k3["tile"], k3["mask"])
+    a4, k4 = calls["quad_force"][0]
+    e4, abs4 = k4_check(*pick(a4, k4, sel), f"{label} refined domain slab")
+    out["k3_abs"], out["k4_abs"] = abs3, abs4
+    parts.append(
+        f"(a) {label} on strategy bh ({int(keep.sum())} in the box, "
+        f"capacity {st.capacity}, ml{cfg.max_level}+R{cfg.refine_levels}): "
+        f"force vs single-chip adaptive bh_accel {e_force:.2e}, no host "
+        f"sync; initial state p99_typ {p99_0:.4f} median {med0:.3e}; walk "
+        f"{walk} (single-chip refined-near rows {single_rnt}); K3 {tuple(a3[0].shape)} x {tuple(a3[1].shape)}, groups "
+        f"{sel}: vs plain {e3:.2e}, {k3_ms:.3f} ms (bound {k3_bnd[0]:.3f});"
+        f" K4 {tuple(a4[1].shape)}: vs plain {e4:.2e}")
+    del calls, res, ref, a3, k3, a4, k4, acc, stats, rstats
+    gf.reset_launch_counts()
+    sim.compile(1)
+    t0 = time.perf_counter()
+    sim.run(STEPS_ADAPTIVE)
+    sim.block_until_ready()
+    rate = STEPS_ADAPTIVE / (time.perf_counter() - t0)
+    counts = gf.launch_counts()
+    require(counts["group_force"] + counts["group_force_masked"]
+            >= STEPS_ADAPTIVE + 1
+            and counts["quad_force"] >= STEPS_ADAPTIVE + 1,
+            f"{label}: launches {counts} in {STEPS_ADAPTIVE + 1} steps")
+    out["k3"] += counts["group_force"]
+    out["k4"] += counts["quad_force"]
+    require(bool(torch.isfinite(sim.state.pos).all()), f"{label}: not finite")
+    if single_rate is None:
+        single = Simulation(pos, vel, mass, engine="bh", capacity=n,
+                            bounds_width=width, engine_options=dict(
+                                profile="adaptive", **getattr(tt, stack)),
+                            **common)
+        single.compile(1)
+        t0 = time.perf_counter()
+        single.run(STEPS_ADAPTIVE)
+        single.block_until_ready()
+        single_rate = STEPS_ADAPTIVE / (time.perf_counter() - t0)
+        del single
+    parts[-1] += (f"; {STEPS_ADAPTIVE} steps (+1 warm) launches {counts}, "
+                  f"{rate:.3f} steps/s (single-chip adaptive "
+                  f"{single_rate:.3f})")
+
+    # (c) the checkpoint round trips (this sphere's sharded run first)
+    tmp = tempfile.mkdtemp(prefix="nbody_dcp_")
+    try:
+        path = os.path.join(tmp, "sharded")
+        want = sim.state.pos.clone()
+        t_want = sim.elapsed
+        t0 = time.perf_counter()
+        sim.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(path)
+        sim.run(DCP_STEPS)
+        t0 = time.perf_counter()
+        sim.load(path)
+        sim.block_until_ready()
+        load_s = time.perf_counter() - t0
+        require(torch.equal(sim.state.pos, want) and sim.elapsed == t_want,
+                "sharded checkpoint: state not restored bitwise")
+        sim.run(1)
+        sim.block_until_ready()
+        require(bool(torch.isfinite(sim.state.pos).all())
+                and sim.elapsed > t_want, "sharded checkpoint: no step")
+        # a second save over the first: the first pays the one-time costs
+        # (the NCCL communicator of DCP's collectives among them)
+        t0 = time.perf_counter()
+        sim.save(path)
+        save2_s = time.perf_counter() - t0
+        dcp_part = (f"(c) {label} ShardedSimulation.save (default "
+                    f"format): {nbytes} bytes in {save_s:.3f} s (a second "
+                    f"save {save2_s:.3f} s), load {load_s:.3f} s, positions"
+                    f" and elapsed bitwise after {DCP_STEPS} steps, steps "
+                    "on")
+        del sim, want
+        cpos, cvel, cmass = self_gravitating_disc(COMP_N, seed=0)
+        comp = Simulation(cpos, cvel, cmass, engine="brute-pallas",
+                          compensated=True, **common)
+        comp.run(3)
+        cpath = os.path.join(tmp, "compensated")
+        want = (comp.state.pos.clone(), comp.state.vel.clone(),
+                *(x.clone() for x in comp._lo))
+        t_want = comp.elapsed
+        t0 = time.perf_counter()
+        comp.save(cpath, format="orbax")
+        csave_s = time.perf_counter() - t0
+        cbytes = dir_bytes(cpath)
+        comp.run(DCP_STEPS)
+        t0 = time.perf_counter()
+        comp.load(cpath, format="orbax")
+        comp.block_until_ready()
+        cload_s = time.perf_counter() - t0
+        got = (comp.state.pos, comp.state.vel, *comp._lo)
+        require(all(torch.equal(a, b) for a, b in zip(got, want))
+                and comp.elapsed == t_want,
+                "compensated checkpoint: state or low words not bitwise")
+        comp.run(1)
+        require(comp.elapsed > t_want, "compensated checkpoint: no step")
+        dcp_part += (f"; compensated Simulation at {comp.state.capacity} "
+                     f"(brute-pallas) format='orbax': {cbytes} bytes in "
+                     f"{csave_s:.3f} s, load {cload_s:.3f} s, positions, "
+                     f"velocities and low words bitwise")
+        del comp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) the wide rows forced on, one call on the 2^20 disc
+    pos, vel, mass = self_gravitating_disc(SHARD_BH_N, seed=0)
+    sim = ShardedSimulation(pos, vel, mass, engine="bh", n_devices=1,
+                            **common)
+    cfg = sim._bh_config
+    narrow, n_stats = force(sim, cfg)
+    old = ttree.WIDE_N
+    ttree.WIDE_N = WIDE_N_FORCED
+    try:
+        res = {}
+        calls = record_calls(lambda: res.update(w=force(sim, cfg)))
+    finally:
+        ttree.WIDE_N = old
+    wide, w_stats = res.pop("w")
+    keys = ("accept_dropped", "frontier_fallback", "near_fallback",
+            "fb_spill")
+    cnt_n = [int(n_stats[k]) for k in keys]
+    cnt_w = [int(w_stats[k]) for k in keys]
+    require(cnt_n == cnt_w and torch.equal(n_stats["near_totals"],
+                                           w_stats["near_totals"]),
+            f"wide counters {cnt_w} vs narrow {cnt_n}")
+    scale = float(narrow.abs().max())
+    d_wide = float((wide - narrow).abs().max())
+    require(bool(((wide - narrow).abs()
+                  <= 1e-6 * narrow.abs() + 1e-6 * scale).all()),
+            f"wide vs narrow: max |diff| {d_wide:.3e} of {scale:.3e}")
+    (a3, k3), = calls["group_force"]
+    # every massive slab row carries the retired -1, every target -2
+    require(bool(((a3[1][..., 4] == -1.0) | (a3[1][..., 3] == 0.0)).all()
+                 and (a3[0][..., 4] == -2.0).all()),
+            "the wide slab keeps an index column")
+    e3w, abs3w = k3_check(*pick(a3, k3, [0, a3[0].shape[0] // 2]),
+                          "wide domain slab")
+    out["k3_abs"] = max(out["k3_abs"], abs3w)
+    parts.append(
+        f"(b) wide rows (WIDE_N = {WIDE_N_FORCED}) on the 2^20 disc: one "
+        f"domain call vs narrow max |diff| {d_wide:.3e} (largest row "
+        f"{scale:.3e}, bitwise {torch.equal(wide, narrow)}), counters "
+        f"{cnt_w} equal; K3 on the wide slab {tuple(a3[0].shape)} x "
+        f"{tuple(a3[1].shape)} vs plain {e3w:.2e}")
+    parts.append(dcp_part)
+    del sim, calls, res, a3, k3, wide, narrow
+    dist.destroy_process_group()
+    print(f"[23 refined domain, wide rows, checkpoints] {nvidia_smi()} | "
+          + " | ".join(parts), flush=True)
     return out
 
 
@@ -2756,13 +3022,17 @@ def main() -> int:
 
     # -- 22. the sharded path -----------------------------------------------
     sharded = sharded_phase()
+
+    # -- 23. the refined domain route, wide rows, checkpoints ---------------
+    refined = refined_domain_phase(adaptive["rates"][ADAPTIVE_RUNS[0][0]])
     smi = nvidia_smi()
 
-    # the main paths' launches: phases 9, 19, 20, 21 and 22 (each run read
-    # alone)
+    # the main paths' launches: phases 9, 19, 20, 21, 22 and 23 (each run
+    # read alone)
     bh_runs = [*bh_launches.values(), *adaptive["launches"].values(),
                vis["launches"], *reuse["launches"].values()]
-    k4_launches = sum(c["quad_force"] for c in bh_runs) + sharded["k4"]
+    k4_launches = (sum(c["quad_force"] for c in bh_runs) + sharded["k4"]
+                   + refined["k4"])
     def entry(name, source, replaces, launches_, err, ms_, plain_ms, bnd):
         # no single PyTorch call computes a softened-gravity sum
         return {"name": name, "route": "cuda", "source": source,
@@ -2788,10 +3058,11 @@ def main() -> int:
               k2_o20_ms, k2_o20_plain, k2_o20_bound),
         entry("K3 group_force (unmasked, 1M shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
-              sum(c["group_force"] for c in bh_runs) + sharded["k3"],
+              sum(c["group_force"] for c in bh_runs) + sharded["k3"]
+              + refined["k3"],
               max(k3_abs, adaptive["k3_abs"], vis["group_force_abs"],
-                  reuse["k3_abs"], sharded["k3_abs"]), k3_ms, k3_plain,
-              k3_bnd),
+                  reuse["k3_abs"], sharded["k3_abs"], refined["k3_abs"]),
+              k3_ms, k3_plain, k3_bnd),
         entry("K3 group_force (block-dual masked, 100k shapes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:423",
               sum(c["group_force_masked"] for c in bh_runs),
@@ -2800,8 +3071,8 @@ def main() -> int:
         entry("K4 quad_force (1M accepted nodes)", SOURCE_BH,
               "nbody_tpu/ops/group_force.py:362", k4_launches,
               max(k4_abs, adaptive["k4_abs"], vis["quad_force_abs"],
-                  reuse["k4_abs"], sharded["k4_abs"]), k4_ms, k4_plain,
-              k4_bnd),
+                  reuse["k4_abs"], sharded["k4_abs"], refined["k4_abs"]),
+              k4_ms, k4_plain, k4_bnd),
         entry("K5 group_self_force (near_sym, 1M shapes)", SOURCE,
               "nbody_tpu/ops/group_force.py:250",
               sum(c["group_self_force"] for c in sym_launches.values()),

@@ -9,7 +9,9 @@
     update_forces()                   recompute accelerations in place
     add_point / remove_point / get_points
     n_alive, elapsed, settings / set_settings(**kw), energy(), aux()
-    save(path) / load(path)           pickle, same payload as the JAX package
+    save(path) / load(path)           pickle, same payload as the JAX package;
+                                      format="orbax": a torch.distributed
+                                      .checkpoint directory
 
 ``device="cuda"`` runs on the card or raises; nothing silently runs on the
 CPU.  ``engine_options`` bind build options of the ``bh`` engines (a
@@ -50,6 +52,7 @@ from nbody_tpu_torch.ops.traversal import (
     resolve_adaptive_overrides,
     scene_occupancy,
 )
+from nbody_tpu_torch.utils import checkpoint
 
 # brute/bh crossover kept from the JAX package (measured on a TPU v5e,
 # nbody_tpu/api.py:49-59); still to be decided again on the H100
@@ -99,14 +102,11 @@ def _route_engine_options(engine, auto: bool, engine_options, pos,
 
 
 def _check_format(format: str):
-    """The checkpoint formats of the JAX package's ``save``/``load``: the
-    pickle is ported; orbax raises."""
-    if format == "orbax":
-        raise NotImplementedError(
-            "format='orbax' is not yet ported to nbody_tpu_torch; "
-            "torch.distributed.checkpoint is to take its place "
-            "(ROADMAP.md, queue 1, item 17d)")
-    if format != "pickle":
+    """The checkpoint formats of the JAX package's ``save``/``load``:
+    'pickle' (a file both packages read) and 'orbax', written here as a
+    ``torch.distributed.checkpoint`` directory (``utils/checkpoint.py``),
+    which the JAX package cannot read, nor this one an orbax directory."""
+    if format not in ("pickle", "orbax"):
         raise ValueError(
             f"format must be 'pickle' or 'orbax', got {format!r}")
 
@@ -344,21 +344,33 @@ class Simulation:
 
     def save(self, path: str, format: str = "pickle"):
         """Write a pickle that this package's and the JAX package's
-        ``Simulation.load`` both read.  ``format='orbax'`` (the JAX
-        package's sharded checkpoints) is not ported."""
+        ``Simulation.load`` both read, or with ``format='orbax'`` a
+        ``torch.distributed.checkpoint`` directory of the same payload
+        without ``engine`` (as the JAX package's orbax tree), written by
+        this process alone."""
         _check_format(format)
+        payload = self._payload()
+        if format == "orbax":
+            payload.pop("engine")  # the tree holds arrays, not strings
+            checkpoint.save(payload, path)
+            return
         with open(path, "wb") as f:
-            pickle.dump(self._payload(), f)
+            pickle.dump(payload, f)
 
     def load(self, path: str, format: str = "pickle"):
-        """Read a pickle written by ``save`` of either package.  The low
-        words of a compensated checkpoint are restored in a compensated
-        ``Simulation`` (zeros when the file has none) and ignored in a
-        plain one.  A stateful engine's carry is rebuilt from the restored
-        state.  The restored point becomes the ``reset`` target."""
+        """Read what ``save`` wrote in ``format`` (a pickle of either
+        package).  The low words of a compensated checkpoint are restored
+        in a compensated ``Simulation`` (zeros when it has none) and
+        ignored in a plain one.  A stateful engine's carry is rebuilt from
+        the restored state.  The restored point becomes the ``reset``
+        target."""
         _check_format(format)
-        with open(path, "rb") as f:
-            payload = pickle.load(f)
+        if format == "orbax":
+            payload = {top: {k: v.numpy() for k, v in section.items()}
+                       for top, section in checkpoint.load(path).items()}
+        else:
+            with open(path, "rb") as f:
+                payload = pickle.load(f)
         self._state = ParticleState.from_numpy(payload["state"], self.device)
         self._params = SimParams.from_numpy(payload["params"], self.device)
         if self.compensated:

@@ -81,8 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="steps per run() call (0 = all in one call)")
     p.add_argument("--json", action="store_true", help="emit one JSON line")
     p.add_argument("--save", metavar="PATH", default=None,
-                   help="checkpoint the final state to PATH (a pickle the "
-                   "JAX package also reads)")
+                   help="checkpoint the final state to PATH: a pickle the "
+                   "JAX package also reads, or with --devices N > 1 a "
+                   "torch.distributed.checkpoint directory (the JAX "
+                   "package's orbax default); the JSON names the format")
     p.add_argument("--devices", type=int, default=0,
                    help="shard particles over this many ranks, one a card "
                    "(0 or 1 = single device; N > 1 needs a process group of "
@@ -276,8 +278,13 @@ def _timed_run(args, sim, engine_name, run_device, printer) -> dict:
                       energy_drift=abs((e1 - e0) / e0) if e0 else float("nan"),
                       energy_method=sim.energy_method(e_method))
     if args.save:
-        sim.save(args.save)
-        result["checkpoint"] = args.save
+        # each class's default format, as in the JAX package: the sharded
+        # run writes a directory, the single-device run a pickle
+        sharded = args.devices > 1
+        fmt = "orbax" if sharded else "pickle"
+        sim.save(args.save, format=fmt)
+        result.update(checkpoint=args.save, checkpoint_format=(
+            "torch.distributed.checkpoint" if sharded else "pickle"))
     if args.json:
         printer(json.dumps(result))
     else:

@@ -72,11 +72,6 @@ from nbody_tpu_torch.ops.tree import (
 )
 from nbody_tpu_torch.ops.work import LOCK
 
-# the ROADMAP.md items of what the port leaves out (queue 1): the wide row
-# format, and the refined domain route (parallel/sharded.py)
-ROADMAP_WIDE = "ROADMAP.md, queue 1, item 17c"
-ROADMAP_REFINED_DOMAIN = "ROADMAP.md, queue 1, item 17e"
-
 # profile='dense' field stack (auto_for / make_bh_engine / --dense), as in
 # the JAX package (traversal.py:66)
 DENSE_OVERRIDES = dict(max_level=8, near_particle_cap=2048,
@@ -176,18 +171,15 @@ def detect_scene_profile(pos, bounds_center, bounds_width, occupancy=None):
     return "adaptive" if occ["contrast"] > STEEP_CONTRAST else "fast"
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not yet ported to nbody_tpu_torch ({item})")
-
-
 @dataclass(frozen=True)
 class BHConfig:
     """Static traversal configuration: the JAX package's fields with the
     same defaults and checks (``nbody_tpu/ops/traversal.py:266-548``; the
     comments there record how each default was tuned on a TPU v5e).
-    ``wide`` (the domain path's N >= 2^24 row format) raises
-    ``NotImplementedError``."""
+    ``wide`` is the domain path's row format for N >= 2^24
+    (``traversal.py:441``): hi/lo node-table ranges (``decode_ranges``),
+    fallback containment by Morton prefix and no index compare in the
+    pair eval, set by ``parallel/domain.py`` from ``wide_ranges``."""
 
     max_level: int = 7
     dim: int = 3
@@ -256,9 +248,6 @@ class BHConfig:
         # level in the table
         if self.fb_quad and not self.quad_leaf:
             raise ValueError("fb_quad=True requires quad_leaf=True")
-        if self.wide:
-            _unported("wide (the N >= 2^24 domain row format)",
-                      ROADMAP_WIDE)
         if self.multipole not in ("quad", "mono"):
             raise ValueError(
                 f"multipole must be 'quad' or 'mono', got {self.multipole!r}")
@@ -494,20 +483,26 @@ def _quad_block(gpos, qrows, g, eps2, p_block=0):
                             (w * ez - ir5 * uz).sum(-1)], dim=-1)
 
 
-def _fb_inside(fb, gidx, dtype, tcell=None):
-    """[G, B, F] "fb cell contains target" mask, the narrow form: the
-    sorted-range compare cs <= sorted_idx < ce (cols 4/5 of fb [G, F, 8];
-    exact integers in the dtype by the tree guard).  Empty fb slots hold the
-    empty range [0, 0); their M = 0 row is masked by the caller's m_eff
-    guard either way.  The wide form (the targets' leaf codes ``tcell``)
-    belongs to the N >= 2^24 row format."""
-    if tcell is not None:
-        _unported("the wide fb containment test (tcell)", ROADMAP_WIDE)
-    ti = gidx.to(dtype)[:, :, None]
-    return (fb[:, None, :, 4] <= ti) & (ti < fb[:, None, :, 5])
+def _fb_inside(fb, gidx, dtype, tcell=None, dim: int = 3,
+               max_level: int = 0):
+    """[G, B, F] "fb cell contains target" mask.  Narrow: the sorted-range
+    compare cs <= sorted_idx < ce (cols 4/5 of fb [G, F, 8]; exact integers
+    in the dtype by the tree guard).  Wide (``tcell`` [G, B], the targets'
+    leaf codes): the equivalent Morton-prefix test on the row's (level,
+    cell id) in cols 6/7, exact at any N (``traversal.py:929``).  Empty fb
+    slots hold a zero row; their M = 0 is masked by the caller's m_eff
+    guard either way."""
+    if tcell is None:
+        ti = gidx.to(dtype)[:, :, None]
+        return (fb[:, None, :, 4] <= ti) & (ti < fb[:, None, :, 5])
+    lvl = fb[..., 6].to(torch.int32)
+    cid = fb[..., 7].to(torch.int32)
+    shift = dim * torch.clamp(max_level - lvl, min=0)  # spill level -1 too
+    return (tcell[:, :, None] >> shift[:, None, :]) == cid[:, None, :]
 
 
-def _fb_terms(gpos, gidx, gmass, fb, eps2):
+def _fb_terms(gpos, gidx, gmass, fb, eps2, tcell=None, dim: int = 3,
+             max_level: int = 0):
     """The self-excluded monopole terms of the overflow-fallback slab fb
     [G, F, 8] (raw packed node rows: M, mass-weighted sums S, range
     start/end), chunk of groups by chunk so the [C, B, F] temporaries stay
@@ -516,7 +511,8 @@ def _fb_terms(gpos, gidx, gmass, fb, eps2):
         M' = M - m_i,   com' = (S - m_i p_i) / M'
     Yields (chunk slice, mi, m_eff, com' [C, B, F, 3], d = com' - p, ok,
     inv_r), the others [C, B, F]; empty slots and self-only cells have ok
-    False."""
+    False.  ``tcell`` (wide rows) selects the Morton-prefix containment
+    (``_fb_inside``)."""
     G, B, _ = gpos.shape
     F = fb.shape[1]
     tiny = torch.finfo(gpos.dtype).tiny
@@ -525,7 +521,9 @@ def _fb_terms(gpos, gidx, gmass, fb, eps2):
         sl = slice(c0, c0 + step)
         p = gpos[sl][:, :, None, :]  # [C, B, 1, 3]
         f = fb[sl][:, None, :, :]  # [C, 1, F, 8]
-        inside = _fb_inside(fb[sl], gidx[sl], gpos.dtype)
+        inside = _fb_inside(fb[sl], gidx[sl], gpos.dtype,
+                            None if tcell is None else tcell[sl], dim,
+                            max_level)
         mi = torch.where(inside, gmass[sl][:, :, None], 0.0)
         m_eff = f[..., 0] - mi
         den = torch.clamp(m_eff, min=tiny)
@@ -545,16 +543,18 @@ def _level_offsets(lvl, branch: int):
 
 
 def _fb_eval(gpos, gidx, gmass, fb, g, eps2, all_quad=None,
-             branch: int = 8):
+             branch: int = 8, tcell=None, max_level: int = 0):
     """Self-excluded acceleration from the overflow-fallback slab
     (``_fb_terms``) -> [G, B, 3].  With ``all_quad`` (``fb_quad``) each
     cell adds its self-excluded traceless quadrupole
     (``nbody_tpu/ops/traversal.py:880-925``): the raw second moments by
     (level, cell id) in slots 6/7 minus the target's own m_i p pᵀ,
-    centralized about com'."""
+    centralized about com'.  ``tcell`` [G, B] (the wide rows: the targets'
+    leaf codes at ``max_level``) takes the Morton-prefix containment."""
     out = []
-    for sl, mi, m_eff, com, d, ok, inv_r in _fb_terms(gpos, gidx, gmass, fb,
-                                                      eps2):
+    dim = branch.bit_length() - 1
+    for sl, mi, m_eff, com, d, ok, inv_r in _fb_terms(
+            gpos, gidx, gmass, fb, eps2, tcell, dim, max_level):
         ir2 = inv_r * inv_r
         ir3 = ir2 * inv_r
         s = torch.where(ok, ir3 * m_eff, 0.0)
@@ -712,17 +712,16 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     ``far_cell_cap``, returned as ``far_ids`` / ``far_valid`` [G,
     far_cell_cap] and fetched by a request/reply collective; overflow of
     either list keeps the self-excluded fallback
-    (``nbody_tpu/ops/traversal.py:1283-1310``).  The refined levels have
-    no far route here (the refined domain route is ROADMAP.md, queue 1,
-    item 17e)."""
+    (``nbody_tpu/ops/traversal.py:1283-1310``).  The refined levels split
+    their ranges the same way (``traversal.py:1413-1451``): those outside
+    the slab go to the refined-far list under ``refine_far_cell_cap`` /
+    ``refine_far_particle_cap``, returned as ``rfar`` [G, RFC, 2] /
+    ``rfar_valid`` with the counter ``refine_far_totals`` [G]."""
     G, B, _ = gpos.shape
     L = cfg.max_level
     W = window
     branch = cfg.branch
     dtype, dev = gpos.dtype, gpos.device
-    if local_bounds is not None and cfg.refine_levels:
-        _unported("refined levels on the domain walk",
-                  ROADMAP_REFINED_DOMAIN)
 
     # per-subgroup boxes over alive members (their union covers the group
     # tightly even where it straddles a Morton seam)
@@ -779,7 +778,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         row = torch.cat([m[..., None], row[..., 1:]], dim=-1)
         occupied = m > 0
         com = row[..., 1:4] / torch.where(occupied, m, 1.0)[..., None]
-        cs, ce = decode_ranges(row)
+        cs, ce = decode_ranges(row, cfg.wide)
 
         covered = _cover(delta, pending, occupied, cs, ce, wstart, wend, W)
 
@@ -872,10 +871,15 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     # unexpandable cells become explicit sorted ranges under per-group
     # cumulative budgets, and overflow keeps the self-excluded fallback.
     RC = cfg.refine_near_cell_cap
+    # a domain walk splits the refined ranges by gather locality too
+    RFC = cfg.refine_far_cell_cap if local_bounds is not None else 0
     if R:
         rnear = torch.zeros((G, RC + 1, 2), **i32)  # column RC is trash
         rn_off = torch.zeros((G,), **i32)
         rn_pcnt = torch.zeros((G,), **i32)
+        rfar = torch.zeros((G, RFC + 1, 2), **i32)
+        rf_off = torch.zeros((G,), **i32)
+        rf_pcnt = torch.zeros((G,), **i32)
     for r in range(1, R + 1):
         row = tree.refine_tables[r - 1][rids.long()]  # [G, F, 8]
         m = torch.where(rvalid, row[..., 0], 0.0)
@@ -895,23 +899,24 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
             descend = _capped(expand & (rbase >= 0), rf_parent_cap)
             expand = expand & ~descend
 
-        # refined-near ranges under the budgets left by the earlier levels
-        cnt = torch.where(expand, ce - cs, 0)
-        inc_n = (expand
-                 & (rn_pcnt[:, None] + torch.cumsum(cnt, 1)
-                    <= cfg.refine_near_particle_cap)
-                 & (rn_off[:, None] + torch.cumsum(expand.to(torch.int32), 1)
-                    <= RC))
+        # refined ranges under the budgets left by the earlier levels: a
+        # domain walk's ranges inside the rank's slab join the near list,
+        # the Morton-far (seam-core) ones the refined-far list
+        exp_l = expand
+        if RFC:
+            is_local = (cs >= local_bounds[0]) & (ce <= local_bounds[1])
+            exp_l = expand & is_local
+            exp_f = expand & ~is_local
+        rnear, rn_off, rn_pcnt, inc_n = _push_ranges(
+            rnear, rn_off, rn_pcnt, exp_l, cs, ce,
+            cfg.refine_near_particle_cap, RC)
         overflowed = expand & ~inc_n
+        if RFC:
+            rfar, rf_off, rf_pcnt, inc_f = _push_ranges(
+                rfar, rf_off, rf_pcnt, exp_f, cs, ce,
+                cfg.refine_far_particle_cap, RFC)
+            overflowed = overflowed & ~inc_f
         n_fallback = n_fallback + overflowed.sum(dim=1, dtype=torch.int32)
-        slot = rn_off[:, None] + torch.cumsum(inc_n.to(torch.int32), 1) - 1
-        write = torch.where(inc_n & (slot < RC), slot, RC).long()
-        rnear.scatter_(1, write[..., None].expand(-1, -1, 2),
-                       torch.stack([cs, ce], dim=-1))
-        rn_off = torch.clamp(rn_off + inc_n.sum(dim=1), max=RC).to(
-            torch.int32)
-        rn_pcnt = rn_pcnt + torch.where(inc_n, cnt, 0).sum(
-            dim=1, dtype=torch.int32)
 
         # fallback rows: self-exclusion by range containment; slots 6/7
         # hold (-1, 0), as refined rows have no (level, cell id) address
@@ -945,14 +950,42 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                    rnear_valid=(torch.arange(RC, **i32)[None, :]
                                 < rn_off[:, None]),
                    refine_near_totals=rn_pcnt)
+    if R and RFC:
+        out.update(rfar=rfar[:, :RFC],
+                   rfar_valid=(torch.arange(RFC, **i32)[None, :]
+                               < rf_off[:, None]),
+                   refine_far_totals=rf_pcnt)
     return out
 
 
-def _expand_ranges(leaf_table, cell_ids, cell_valid, cap: int):
+def _push_ranges(ranges, off, pcnt, cand, cs, ce, particle_cap: int,
+                 cell_cap: int):
+    """Append the candidate ranges ``(cs, ce)[cand]`` [G, F] to a group's
+    range list ``ranges`` [G, cell_cap + 1, 2] (column cell_cap is trash)
+    while the running particle count ``pcnt`` and range count ``off`` [G]
+    stay within their caps (the order-preserving prefix a budget admits).
+    Returns (ranges, off, pcnt, admitted [G, F])."""
+    cnt = torch.where(cand, ce - cs, 0)
+    inc = (cand
+           & (pcnt[:, None] + torch.cumsum(cnt, 1) <= particle_cap)
+           & (off[:, None] + torch.cumsum(cand.to(torch.int32), 1)
+              <= cell_cap))
+    slot = off[:, None] + torch.cumsum(inc.to(torch.int32), 1) - 1
+    write = torch.where(inc & (slot < cell_cap), slot, cell_cap).long()
+    ranges.scatter_(1, write[..., None].expand(-1, -1, 2),
+                    torch.stack([cs, ce], dim=-1))
+    off = torch.clamp(off + inc.sum(dim=1), max=cell_cap).to(torch.int32)
+    pcnt = pcnt + torch.where(inc, cnt, 0).sum(dim=1, dtype=torch.int32)
+    return ranges, off, pcnt, inc
+
+
+def _expand_ranges(leaf_table, cell_ids, cell_valid, cap: int,
+                   wide: bool = False):
     """Expand leaf-cell particle ranges into padded flat index lists for all
     groups at once.  cell_ids [G, C], cell_valid [G, C] ->
-    (pidx [G, cap] int32, pvalid [G, cap], total [G])."""
-    nstart, nend = decode_ranges(leaf_table[cell_ids.long()])
+    (pidx [G, cap] int32, pvalid [G, cap], total [G]); ``wide`` decodes
+    the hi/lo range columns."""
+    nstart, nend = decode_ranges(leaf_table[cell_ids.long()], wide)
     return _expand_from_ranges(nstart, nend, cell_valid, cap)
 
 
@@ -1129,6 +1162,10 @@ def _slab_eval(slab, tgt8, center, g, eps2, g_soft, cfg: BHConfig, mode,
     """Every group's targets vs its assembled slab: K3 (``gf.group_force``)
     in 'pallas' mode; in 'xla' mode the plain pair blocks (norm-trick form
     with ``mxu_blocks``) with index self-exclusion, chunked over groups.
+    With ``cfg.wide`` the index compare is retired, as in the maskless K3
+    (a self pair adds 0 through d = 0), and so is the norm-trick form,
+    whose unskipped self term cancels only to rounding
+    (``traversal.py:1916-1945``).
 
     slab [G, S, 8], tgt8 [G, B, 8], center [G, 3] -> [G, B, 3].  ``mask``
     [G, bt, S // tile] skips the block-dual accepted tile pairs; block-dual
@@ -1153,13 +1190,15 @@ def _slab_eval(slab, tgt8, center, g, eps2, g_soft, cfg: BHConfig, mode,
     out = []
     for s0 in starts:
         sl, t8 = slab[s0:s0 + cg], tgt8[s0:s0 + cg]
-        ct = center[s0:s0 + cg] if cfg.mxu_blocks else None
-        sli = sl[..., 4].to(torch.int32)
+        ct = (center[s0:s0 + cg] if cfg.mxu_blocks and not cfg.wide
+              else None)
+        sli = tgi = None
+        if not cfg.wide:
+            sli, tgi = sl[..., 4].to(torch.int32), t8[..., 4].to(torch.int32)
         if mask is None:
             out.append(_pair_block(
-                t8[..., :3], t8[..., 4].to(torch.int32), sl[..., :3],
-                sl[..., 3], sli, sl[..., 3] != 0.0, g, eps2, ct,
-                p_block=pb))
+                t8[..., :3], tgi, sl[..., :3], sl[..., 3], sli,
+                sl[..., 3] != 0.0, g, eps2, ct, p_block=pb))
             continue
         # masked tile pairs: the source masses zeroed per target tile, each
         # target tile evaluated as its own batch row
@@ -1171,9 +1210,10 @@ def _slab_eval(slab, tgt8, center, g, eps2, g_soft, cfg: BHConfig, mode,
         rep = lambda x: x.repeat_interleave(bt, dim=0)
         acc = _pair_block(
             t8[..., :3].reshape(C * bt, ti, 3),
-            t8[..., 4].to(torch.int32).reshape(C * bt, ti),
-            rep(sl[..., :3]), m_t, rep(sli), m_t != 0.0, g, eps2,
-            None if ct is None else rep(ct), p_block=pb)
+            None if tgi is None else tgi.reshape(C * bt, ti),
+            rep(sl[..., :3]), m_t, None if sli is None else rep(sli),
+            m_t != 0.0, g, eps2, None if ct is None else rep(ct),
+            p_block=pb)
         out.append(acc.reshape(C, B, 3))
     return torch.cat(out)
 
@@ -1370,6 +1410,8 @@ def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int,
     """``_pack`` and the collect walk for every group, or for the
     ``groups`` slice of them (a shard's).  Returns (eps2, pmass8 [n_tot,
     8], tgt8 [G, B, 8], gidx [G, B], W, walk) with G the groups walked."""
+    if cfg.wide:  # the containment test needs the targets' leaf codes
+        raise ValueError("BHConfig.wide requires target leaf codes (gcode)")
     eps2, pmass8, tgt8, gidx, W = _pack(tree, g_soft, cfg, n)
     if groups is not None:
         tgt8, gidx = tgt8[groups], gidx[groups]

@@ -319,24 +319,46 @@ def _segment_leaf_stats(pos_s, mass_s, leaf_starts):
                                 unsafe=True)
 
 
-def _check_range_dtype(n: int, ftype) -> None:
+#: from this N on, f32 node-table range columns lose integer exactness and
+#: the domain-decomposed build switches to the wide row format (each range
+#: split hi/lo over two f32 columns, exact to 2^31); module-level so tests
+#: can lower it and run the wide path at small N (``tree.py:398``)
+WIDE_N = 1 << 24
+_RANGE_SHIFT = 12  # wide split: v = hi * 2^12 + lo; hi < 2^19, lo < 2^12
+
+
+def wide_ranges(n: int, ftype) -> bool:
+    """Whether node tables for ``n`` particles in total take the wide range
+    encoding: f32 from ``WIDE_N`` on (f64 holds exact integers to 2^53).
+    The table build and every range consumer ask this same predicate."""
+    return ftype == torch.float32 and n >= WIDE_N
+
+
+def _check_range_dtype(n: int, ftype, wide: bool = False) -> None:
     """Packed node rows store particle-range starts/ends in the position
     dtype; counts beyond its mantissa (2^24 in f32, 2^53 in f64) would
-    silently corrupt the ranges, so refuse them.  The JAX package's wide
-    hi/lo range encoding (domain-decomposed builds) is not ported."""
-    limit = 1 << (53 if ftype == torch.float64 else 24)
+    silently corrupt the ranges, so refuse them.  The wide encoding
+    (domain-decomposed builds, ``wide_ranges``) lifts the f32 ceiling to
+    2^31, the limit of the int32 index arithmetic."""
+    limit = 1 << (53 if ftype == torch.float64 else (31 if wide else 24))
     if n >= limit:
         raise ValueError(
             f"N={n} exceeds the exact-integer range of {ftype} node tables; "
-            "use float64 for N >= 2^24 (the wide row format of the domain "
-            "path is ROADMAP.md, queue 1, item 17c)"
+            "use float64 for N >= 2^24"
         )
 
 
-def decode_ranges(row):
-    """(range_start, range_end) int32 from packed node rows [..., 8]
-    (narrow mode: columns 4/5 hold exact integers)."""
-    return row[..., 4].to(torch.int32), row[..., 5].to(torch.int32)
+def decode_ranges(row, wide: bool = False):
+    """(range_start, range_end) int32 from packed node rows [..., 8].
+    Narrow: columns 4/5 hold the values (exact integers by the
+    _check_range_dtype guard).  Wide: columns 4-7 hold (start_hi, start_lo,
+    end_hi, end_lo) with v = hi * 2^12 + lo, every part below 2^19, so an
+    f32 row stays exact to N = 2^31."""
+    if not wide:
+        return row[..., 4].to(torch.int32), row[..., 5].to(torch.int32)
+    part = row[..., 4:8].to(torch.int32)
+    return ((part[..., 0] << _RANGE_SHIFT) | part[..., 1],
+            (part[..., 2] << _RANGE_SHIFT) | part[..., 3])
 
 
 def _level_stats(leaf_mass, leaf_mpos, max_level: int, branch: int):
@@ -350,9 +372,10 @@ def _level_stats(leaf_mass, leaf_mpos, max_level: int, branch: int):
 
 
 def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
-                    branch: int, ftype):
+                    branch: int, ftype, wide: bool = False):
     """Aggregate leaf statistics up the dense pyramid and pack the per-level
-    node tables.  Returns (level_mass, level_mpos, level_table)."""
+    node tables; ``wide`` takes the hi/lo range encoding (decode_ranges).
+    Returns (level_mass, level_mpos, level_table)."""
     stats = _level_stats(leaf_mass, leaf_mpos, max_level, branch)
     counts = [leaf_counts]
     for _ in range(max_level):
@@ -361,13 +384,20 @@ def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
 
     level_table = []
     for l in range(max_level + 1):
+        # integer sums: an f32 partial sum would round past 2^24
         ends = torch.cumsum(counts[l], dim=0, dtype=torch.int32)
-        starts = ends - counts[l]
-        zero = torch.zeros_like(starts, dtype=ftype)
+        starts = ends - counts[l].to(torch.int32)
+        if wide:
+            mask = (1 << _RANGE_SHIFT) - 1
+            ranges = [starts >> _RANGE_SHIFT, starts & mask,
+                      ends >> _RANGE_SHIFT, ends & mask]
+        else:
+            zero = torch.zeros_like(starts)
+            ranges = [starts, ends, zero, zero]
         level_table.append(torch.stack(
             [stats[l][:, 0].to(ftype), stats[l][:, 1].to(ftype),
              stats[l][:, 2].to(ftype), stats[l][:, 3].to(ftype),
-             starts.to(ftype), ends.to(ftype), zero, zero], dim=1))
+             *(r.to(ftype) for r in ranges)], dim=1))
     return (tuple(s[:, 0] for s in stats), tuple(s[:, 1:4] for s in stats),
             tuple(level_table))
 

@@ -31,11 +31,20 @@ by ``parallel/collectives.py``:
 
 The walk (``ops/traversal.py`` ``_group_collect`` with ``local_bounds``)
 and the slab evaluation (K3 and K4 on the card, through
-``_dual_slab_eval`` and ``_quad_eval``) are the single-chip path's.  Left
-out, each refused by name: the wide row format for N >= 2^24 (ROADMAP.md,
-queue 1, item 17c) and the density-adaptive refined levels (item 17e).
+``_dual_slab_eval`` and ``_quad_eval``) are the single-chip path's.
+
+Density-adaptive runs (``refine_levels > 0``) re-sort each rank's routed
+slice by deep Morton code and build the refined tables of
+``ops/tree.py`` ``_build_refined`` replicated, each refined cell's range
+and sums taken on the rank that owns it and merged by one ``psum`` a level
+(``_build_refined_domain``); the walk's refined ranges outside the rank's
+slab ride a second request/reply.  From ``WIDE_N`` particles on (f32), the
+rows take the wide format (``ops/tree.py`` ``wide_ranges``): hi/lo node
+ranges, the original index split (rank, slot) over two columns, the index
+columns retired (-2 on targets, -1 on sources).
+
 No step reads a value back to the host: shapes are static (the capped far
-lists, the [world * R] request buffer, the ``world`` hops of a route).
+lists, the [world * R] request buffers, the ``world`` hops of a route).
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ import torch
 from nbody_tpu_torch.ops import morton
 from nbody_tpu_torch.ops.traversal import (
     BHConfig,
-    ROADMAP_REFINED_DOMAIN,
     _dual_slab_eval,
+    _expand_from_ranges,
     _expand_ranges,
     _fb_all_quad,
     _fb_eval,
@@ -59,17 +68,21 @@ from nbody_tpu_torch.ops.traversal import (
     _quad_eval,
     _quad_slab,
     _resolve_eval_mode,
-    _unported,
     _window_rows,
     fit_chunks,
 )
 from nbody_tpu_torch.ops.tree import (
+    _build_prefix_table,
     _build_quad,
     _check_range_dtype,
+    _compact,
     _pyramid_tables,
     _quad_pyramid,
+    _range_sums_from_table,
     _segment_leaf_stats,
+    _slot_map,
     grid_bounds,
+    wide_ranges,
 )
 from nbody_tpu_torch.parallel import collectives as coll
 
@@ -105,6 +118,89 @@ def _dist_gather(rows_loc, idx, mesh):
     return coll.psum_scatter(got, mesh)
 
 
+def _build_refined_domain(rows_s, deep_s, leaf_starts, max_level: int,
+                          refine_levels: int, refine_cap: int, threshold: int,
+                          branch: int, dim: int, ftype, mesh):
+    """The density-adaptive refined tables of the domain build
+    (``domain.py:115``), in ``ops/tree.py`` ``_build_refined``'s layout:
+    (refine_tables, refine_slot_leaf, refine_child_slot, refine_stats),
+    replicated on every rank.
+
+    The decisions (which cells flag, the slot compaction) run on
+    replicated inputs (``leaf_starts``, the psum'd child ranges), so every
+    rank takes the same ones.  A refined cell's range and sums are taken
+    only on the rank whose slice holds its whole sorted range (``rows_s``
+    is deep-sorted there, ``deep_s`` its deep codes); one ``psum`` a level
+    merges them, every other rank adding zeros.  A flagged leaf whose range
+    straddles a rank boundary is only piecewise deep-sorted, so it keeps
+    the unrefined path and is counted in ``refine_stats[1]`` with the cap
+    overflow; descendants inherit their leaf's owner."""
+    n_loc = rows_s.shape[0]
+    n_leaf = branch ** max_level
+    l_deep = max_level + refine_levels
+    rows_per = refine_cap * branch
+    my_start = mesh.rank * n_loc
+    i32 = dict(dtype=torch.int32, device=rows_s.device)
+    kids = torch.arange(branch, **i32)
+    # my slice's double-float prefix table of (m, m x, m y, m z)
+    table = _build_prefix_table(torch.cat(
+        [rows_s[:, 3:4], rows_s[:, :3] * rows_s[:, 3:4]], dim=1))
+
+    starts, ends = leaf_starts[:-1], leaf_starts[1:]
+    owner = torch.div(starts, n_loc, rounding_mode="floor")
+    # an empty cell (ends - 1 < starts) fails the threshold test anyway
+    intact = torch.div(ends - 1, n_loc, rounding_mode="floor") == owner
+    over = (ends - starts) > threshold
+    flagged = over & intact
+    p_codes, p_valid, dropped = _compact(torch.arange(n_leaf, **i32),
+                                         flagged, refine_cap)
+    p_owner = torch.where(p_valid, owner[p_codes.long()], -1)
+    total_flagged = flagged.sum(dtype=torch.int32)
+    total_dropped = dropped.to(torch.int32) + (over & ~intact).sum(
+        dtype=torch.int32)
+    slot_leaf = _slot_map(p_codes, p_valid, n_leaf, refine_cap)
+
+    tables, child_maps = [], []
+    for r in range(1, refine_levels + 1):
+        child_codes = (p_codes[:, None] * branch + kids).reshape(rows_per)
+        child_valid = p_valid.repeat_interleave(branch)
+        child_owner = p_owner.repeat_interleave(branch)
+        mine = child_valid & (child_owner == mesh.rank)
+        shift = dim * (l_deep - (max_level + r))
+        lo = torch.where(child_valid, child_codes << shift, 0)
+        hi = torch.where(child_valid, (child_codes + 1) << shift, 0)
+        # a local search is right exactly for the ranges I own (my slice
+        # is deep-sorted)
+        found = torch.searchsorted(deep_s, torch.cat([lo, hi]),
+                                   side="left").to(torch.int32)
+        ls = torch.where(mine, found[:rows_per], 0)
+        le = torch.where(mine, found[rows_per:], 0)
+        cs = coll.psum(torch.where(mine, ls + my_start, 0), mesh)
+        ce = coll.psum(torch.where(mine, le + my_start, 0), mesh)
+        sums = coll.psum(torch.where(
+            mine[:, None], _range_sums_from_table(table, ls, le, 4), 0.0),
+            mesh)
+        m = torch.where(child_valid & (ce > cs), sums[:, 0], 0.0)
+        zero = torch.zeros_like(m)
+        tables.append(torch.stack(
+            [m, sums[:, 1], sums[:, 2], sums[:, 3], cs.to(m.dtype),
+             ce.to(m.dtype), zero, zero], dim=1).to(ftype))
+        if r < refine_levels:
+            # replicated after the psum: the same flags on every rank
+            flag_r = child_valid & (ce - cs > threshold)
+            p_rows, p_valid, dropped = _compact(
+                torch.arange(rows_per, **i32), flag_r, refine_cap)
+            total_flagged = total_flagged + flag_r.sum(dtype=torch.int32)
+            total_dropped = total_dropped + dropped.to(torch.int32)
+            child_maps.append(_slot_map(p_rows, p_valid, rows_per,
+                                        refine_cap))
+            p_codes = torch.where(p_valid, child_codes[p_rows.long()], 0)
+            p_owner = torch.where(p_valid, child_owner[p_rows.long()], -1)
+
+    stats = torch.stack([total_flagged, total_dropped])
+    return tuple(tables), slot_leaf, tuple(child_maps), stats
+
+
 @dataclass(frozen=True)
 class DomainTree:
     """This rank's slice of the distributed octree (``domain.py:237``):
@@ -113,28 +209,55 @@ class DomainTree:
     the walk reads them unchanged."""
 
     #: [n_loc, 8] my sorted rows (x, y, z, m, original index, leaf code, 0,
-    #: 0); the indices and codes are exact integers in the float dtype
+    #: 0); the indices and codes are exact integers in the float dtype.
+    #: Wide rows split the original index: its slot in column 4, its rank
+    #: in column 6
     rows_s: torch.Tensor
     #: [n_loc + 2 halo, 8] the halo-extended slab, column 4 the global
-    #: sorted index (the source-row layout of K3)
+    #: sorted index (the source-row layout of K3; -1 in wide rows)
     ext8: torch.Tensor
     level_table: Tuple[torch.Tensor, ...]
     halo: int
     #: the replicated quadrupole table, None for multipole="mono"
     all_quad: Optional[torch.Tensor] = None
+    #: the refined tables (refine_levels > 0), replicated, in the layout of
+    #: ``LinearOctree``'s fields of the same names (``_build_refined_domain``)
+    refine_tables: Optional[Tuple[torch.Tensor, ...]] = None
+    refine_slot_leaf: Optional[torch.Tensor] = None
+    refine_child_slot: Optional[Tuple[torch.Tensor, ...]] = None
+    refine_stats: Optional[torch.Tensor] = None
 
 
 def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
                       halo: int, dim: int = 3, quad: bool = False,
-                      quad_leaf: bool = True) -> DomainTree:
+                      quad_leaf: bool = True, refine_levels: int = 0,
+                      refine_cap: int = 8192,
+                      refine_threshold: int = 512) -> DomainTree:
     """The distributed octree over this rank's shard
     (``domain.py:259``), steps 1-4 of the module docstring.  Its sorted
     permutation is the single-chip ``build_octree``'s; its leaf statistics
     are JAX's segment sums, where ``build_octree`` takes double-float range
-    differences."""
+    differences.
+
+    ``refine_levels > 0`` re-sorts the routed slice by deep Morton code, a
+    permutation within leaf cells only (the leaf codes are the deep codes'
+    prefixes, and a stable sort keeps the original index as the tie-break,
+    as the single-chip deep sort does), and adds the refined tables
+    (``_build_refined_domain``)."""
     n_loc = pos_loc.shape[0]
     n_tot = n_loc * mesh.world
-    _check_range_dtype(n_tot, pos_loc.dtype)
+    wide = wide_ranges(n_tot, pos_loc.dtype)
+    _check_range_dtype(n_tot, pos_loc.dtype, wide=wide)
+    if wide and dim * max_level > 24:
+        # the leaf codes ride an f32 row column and must stay exact
+        raise ValueError(
+            f"wide mode leaf codes need dim*max_level <= 24, got "
+            f"{dim}*{max_level}")
+    if wide and n_loc >= 1 << 24:
+        # the (rank, slot) return route keeps the slot in an f32 column
+        raise ValueError(
+            f"wide mode needs per-chip shard < 2^24 rows for the exact f32 "
+            f"(chip, slot) route, got {n_loc}; use more devices")
     if halo > n_loc:
         raise ValueError(f"halo {halo} exceeds the shard of {n_loc} rows")
     branch = 1 << dim
@@ -167,12 +290,35 @@ def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
     p = cell_start[c] + on_lower[c] + (j - local_start[c])
 
     # 3. route the rows to their sorted owners (index and code as exact
-    #    integers in the float columns, guarded by _check_range_dtype)
+    #    integers in the float columns, guarded by _check_range_dtype); wide
+    #    rows split the index (slot in column 4, rank in column 6), each
+    #    part below 2^24
     zero = pos_loc.new_zeros((n_loc,))
+    idx_col, rank_col = ((perm.to(ftype), torch.full_like(zero, my)) if wide
+                         else (orig_s.to(ftype), zero))
     rows = torch.stack([pos_loc[perm, 0], pos_loc[perm, 1],
-                        pos_loc[perm, 2], mass_loc[perm], orig_s.to(ftype),
-                        code_s.to(ftype), zero, zero], dim=1)
+                        pos_loc[perm, 2], mass_loc[perm], idx_col,
+                        code_s.to(ftype), rank_col, zero], dim=1)
     rows_s = _ring_route(rows, p, mesh)
+
+    # 3b. density-adaptive runs: my slice re-sorted by deep code, dead rows
+    #     (the sentinel leaf code) keeping a sentinel deep code
+    deep_s = None
+    if refine_levels:
+        l_deep = max_level + refine_levels
+        if l_deep > (morton.MAX_LEVEL_3D if dim == 3
+                     else morton.MAX_LEVEL_2D):
+            raise ValueError(
+                f"max_level + refine_levels = {l_deep} exceeds the "
+                f"{dim}D Morton code depth limit")
+        if wide:
+            raise ValueError(
+                "refine_levels does not support the wide row format "
+                "(N >= 2^24)")
+        deep = morton.cell_codes(rows_s[:, :dim], gb, l_deep)
+        deep = torch.where(rows_s[:, 5] < n_leaf, deep, branch ** l_deep)
+        deep_s, order = torch.sort(deep, stable=True)
+        rows_s = rows_s[order]
 
     # 4. leaf statistics: my slice's segment sums, merged by psum; the
     #    sentinel rows lie past the last offset and drop out
@@ -185,7 +331,7 @@ def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
                             mesh)
     _m, _p, level_table = _pyramid_tables(leaf[:, 0], leaf[:, 1:4],
                                           leaf_counts, max_level, branch,
-                                          ftype)
+                                          ftype, wide=wide)
     all_quad = None
     if quad:
         q, top = _build_quad(rows_s[:, :3], rows_s[:, 3], starts_my,
@@ -201,22 +347,57 @@ def build_domain_tree(pos_loc, mass_loc, bounds, max_level: int, mesh,
     if my == mesh.world - 1:
         from_right = torch.zeros_like(from_right)
     ext = torch.cat([from_left, rows_s, from_right])
-    ext_idx = my * n_loc - halo + torch.arange(n_loc + 2 * halo, device=dev)
-    ext8 = torch.cat([ext[:, :4], ext_idx.to(ftype)[:, None], ext[:, 5:]],
-                     dim=1)
+    if wide:
+        # the index column retired (the maskless eval): a -1 that never
+        # equals a target's
+        ext_idx = torch.full_like(ext[:, 4], -1.0)
+    else:
+        ext_idx = (my * n_loc - halo
+                   + torch.arange(n_loc + 2 * halo, device=dev)).to(ftype)
+    ext8 = torch.cat([ext[:, :4], ext_idx[:, None], ext[:, 5:]], dim=1)
+
+    refine = {}
+    if refine_levels:
+        leaf_starts = torch.cat([leaf_counts.new_zeros((1,)),
+                                 torch.cumsum(leaf_counts, 0,
+                                              dtype=torch.int32)])
+        tables, slot_leaf, child_maps, rstats = _build_refined_domain(
+            rows_s, deep_s, leaf_starts, max_level, refine_levels,
+            refine_cap, refine_threshold, branch, dim, ftype, mesh)
+        refine = dict(refine_tables=tables, refine_slot_leaf=slot_leaf,
+                      refine_child_slot=child_maps, refine_stats=rstats)
     return DomainTree(rows_s=rows_s, ext8=ext8, level_table=level_table,
-                      halo=halo, all_quad=all_quad)
+                      halo=halo, all_quad=all_quad, **refine)
 
 
-def _masked_rows(rows8, pidx, pvalid):
+def _masked_rows(rows8, pidx, pvalid, wide: bool = False):
     """Gathered slab rows [G, P, 8] with masses zeroed past each group's
     list and column 4 the global sorted index (-1 on empty slots, which
-    never equals a target's)."""
+    never equals a target's; -1 everywhere in wide rows, whose index
+    column is retired)."""
+    idx = (torch.full_like(rows8[..., 4], -1.0) if wide
+           else torch.where(pvalid, pidx.to(rows8.dtype), -1.0))
     return torch.cat([rows8[..., :3],
                       torch.where(pvalid, rows8[..., 3], 0.0)[..., None],
-                      torch.where(pvalid, pidx.to(rows8.dtype),
-                                  -1.0)[..., None],
-                      rows8[..., 5:]], dim=-1)
+                      idx[..., None], rows8[..., 5:]], dim=-1)
+
+
+def _local_rows(ext8, pidx, pvalid, local_lo: int, wide: bool):
+    """Slab rows [G, P, 8] of global sorted indices ``pidx`` that lie in
+    this rank's halo-extended slab ``ext8`` (the walk admitted only such
+    cells and ranges to the local lists)."""
+    rows = ext8[torch.clamp(pidx - local_lo, 0, ext8.shape[0] - 1).long()]
+    return _masked_rows(rows, pidx, pvalid, wide)
+
+
+def _far_rows(rows_s, pidx, pvalid, mesh, wide: bool):
+    """Slab rows [G, P, 8] of global sorted indices ``pidx`` held anywhere
+    on the mesh, by one request/reply (``_dist_gather``)."""
+    G, P = pidx.shape
+    far4 = _dist_gather(rows_s[:, :4], pidx.reshape(-1), mesh)
+    far8 = torch.cat([far4.reshape(G, P, 4), far4.new_zeros((G, P, 4))],
+                     dim=-1)
+    return _masked_rows(far8, pidx, pvalid, wide)
 
 
 def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
@@ -225,18 +406,20 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
     (``domain.py:455``).  Returns (acc [n_loc, 3] in this shard's original
     order, stats: the walk's counters summed over this rank's groups, the
     near totals [G] of near + far particles a group, ``far_totals`` [G],
-    ``dual_tiles``).  ``mark`` is called at phase boundaries (on-card
-    timing), as in ``traverse_tree``."""
+    ``dual_tiles``, and with ``refine_levels`` the refined-near and
+    refined-far particles a group, ``refine_near_totals`` /
+    ``refine_far_totals`` [G], and the build's ``refine_build_dropped``).
+    ``mark`` is called at phase boundaries (on-card timing), as in
+    ``traverse_tree``."""
     mark = mark or _no_mark
-    if cfg.refine_levels:
-        _unported("density-adaptive refinement (refine_levels) on the "
-                  "domain path", ROADMAP_REFINED_DOMAIN)
     mode = _resolve_eval_mode(cfg, pos_loc)
     # grid frame, as bh_accel: every f32 sum bounded by the half-width
     pos_loc = pos_loc - bounds.center
     bounds = bounds.centered()
     n_loc = pos_loc.shape[0]
     n_tot = n_loc * mesh.world
+    if wide_ranges(n_tot, pos_loc.dtype) and not cfg.wide:
+        cfg = dataclasses.replace(cfg, wide=True)
     if cfg.near_sym:
         # the domain slab is assembled here and has no split-window self
         # square: the asymmetric eval, as in the JAX package
@@ -260,46 +443,64 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
     my_start = mesh.rank * n_loc
     dtype, dev = pos_loc.dtype, pos_loc.device
     eps2 = float(torch.tensor(float(g_soft), dtype=dtype) ** 2)
+    wide = cfg.wide
 
     tree = build_domain_tree(pos_loc, mass_loc, bounds, cfg.max_level, mesh,
                              halo, dim=cfg.dim,
                              quad=cfg.multipole == "quad",
-                             quad_leaf=cfg.quad_leaf)
+                             quad_leaf=cfg.quad_leaf,
+                             refine_levels=cfg.refine_levels,
+                             refine_cap=cfg.refine_cap,
+                             refine_threshold=cfg.refine_threshold_resolved)
     mark("build")
 
     G = n_loc // B
     gidx = (my_start + torch.arange(n_loc, dtype=torch.int32, device=dev)
             ).reshape(G, B)
-    tgt8 = torch.cat([tree.rows_s[:, :4], gidx.reshape(-1, 1).to(dtype),
-                      tree.rows_s[:, 5:]], dim=1).reshape(G, B, 8)
+    # wide: the target index column retired (-2 never equals a source
+    # row's -1); the fallback containment takes the targets' leaf codes
+    tcol = (torch.full((G, B, 1), -2.0, dtype=dtype, device=dev) if wide
+            else gidx[..., None].to(dtype))
+    tgt8 = torch.cat([tree.rows_s[:, :4].reshape(G, B, 4), tcol,
+                      tree.rows_s[:, 5:].reshape(G, B, 3)], dim=-1)
+    tcell = tree.rows_s[:, 5].to(torch.int32).reshape(G, B) if wide else None
     local_lo, local_hi = my_start - halo, my_start + n_loc + halo
     walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
                           cfg, window, tgt8[..., :3], tgt8[..., 3], gidx,
                           local_bounds=(local_lo, local_hi))
     mark("walk")
     acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2,
-                      _fb_all_quad(tree, cfg), cfg.branch)
+                      _fb_all_quad(tree, cfg), cfg.branch, tcell,
+                      cfg.max_level)
     mark("fb")
 
     leaf_table = tree.level_table[cfg.max_level]
     pidx, pvalid, ntot_near = _expand_ranges(
         leaf_table, walk["near_ids"], walk["near_valid"],
-        cfg.near_particle_cap)
+        cfg.near_particle_cap, wide)
     pidx_f, pfvalid, ntot_far = _expand_ranges(
-        leaf_table, walk["far_ids"], walk["far_valid"], cfg.far_particle_cap)
+        leaf_table, walk["far_ids"], walk["far_valid"], cfg.far_particle_cap,
+        wide)
 
     # slab: window rows and local near rows from the halo slab, far rows
     # by request/reply (the one per-particle collective not O(n_loc))
-    n_ext = n_loc + 2 * halo
     wrows = _window_rows(tree.ext8, walk["wstart"] - local_lo, walk["wmask"],
                          window)
-    near = tree.ext8[torch.clamp(pidx - local_lo, 0, n_ext - 1).long()]
-    nrows = _masked_rows(near, pidx, pvalid)
-    far4 = _dist_gather(tree.rows_s[:, :4], pidx_f.reshape(-1), mesh)
-    far8 = torch.cat([far4.reshape(G, cfg.far_particle_cap, 4),
-                      far4.new_zeros((G, cfg.far_particle_cap, 4))], dim=-1)
-    frows = _masked_rows(far8, pidx_f, pfvalid)
-    parts = [wrows, nrows, frows]
+    parts = [wrows, _local_rows(tree.ext8, pidx, pvalid, local_lo, wide),
+             _far_rows(tree.rows_s, pidx_f, pfvalid, mesh, wide)]
+    if cfg.refine_levels:
+        # refined-near ranges gather from the halo slab like the near rows;
+        # the refined-far list rides a second request/reply, bounded by
+        # refine_far_particle_cap
+        rnear, rfar = walk["rnear"], walk["rfar"]
+        pidx_r, pvalid_r, _ = _expand_from_ranges(
+            rnear[..., 0], rnear[..., 1], walk["rnear_valid"],
+            cfg.refine_near_particle_cap)
+        pidx_rf, pvalid_rf, _ = _expand_from_ranges(
+            rfar[..., 0], rfar[..., 1], walk["rfar_valid"],
+            cfg.refine_far_particle_cap)
+        parts += [_local_rows(tree.ext8, pidx_r, pvalid_r, local_lo, wide),
+                  _far_rows(tree.rows_s, pidx_rf, pvalid_rf, mesh, wide)]
     if cfg.multipole != "quad":
         parts.append(walk["mono"])
     slab = torch.cat(parts, dim=1)
@@ -313,9 +514,13 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
         mark("K4")
     acc_sorted = (acc + acc_fb).reshape(n_loc, 3)
 
-    # forces back to their owners (no gather of the forces)
+    # forces back to their owners (no gather of the forces); wide rows
+    # carry the original index as (rank, slot)
+    orig = tree.rows_s[:, 4].long()
+    if wide:
+        orig = tree.rows_s[:, 6].long() * n_loc + orig
     acc4 = torch.cat([acc_sorted, acc_sorted.new_zeros((n_loc, 1))], dim=1)
-    out = _ring_route(acc4, tree.rows_s[:, 4].long(), mesh)[:, :cfg.dim]
+    out = _ring_route(acc4, orig, mesh)[:, :cfg.dim]
     mark("route")
     stats = {
         "accept_dropped": walk["accept_dropped"].sum(),
@@ -326,4 +531,8 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
         "far_totals": ntot_far,
         "dual_tiles": n_dual,
     }
+    if cfg.refine_levels:
+        stats["refine_near_totals"] = walk["refine_near_totals"]
+        stats["refine_far_totals"] = walk["refine_far_totals"]
+        stats["refine_build_dropped"] = tree.refine_stats[1]
     return out, stats

@@ -39,7 +39,6 @@ from nbody_tpu_torch.engines.brute_force import _accumulate, _pairwise_s
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.ops.traversal import (
     DENSE_OVERRIDES,
-    ROADMAP_REFINED_DOMAIN,
     BHConfig,
     fit_chunks,
     resolve_adaptive_overrides,
@@ -49,6 +48,11 @@ from nbody_tpu_torch.ops.tree import build_octree_sharded
 from nbody_tpu_torch.parallel import collectives as coll
 from nbody_tpu_torch.parallel.domain import domain_accel
 from nbody_tpu_torch.parallel.mesh import PARTICLE_AXIS, make_mesh
+from nbody_tpu_torch.utils import checkpoint
+
+#: the per-particle arrays a checkpoint directory holds sharded
+_SHARDED = frozenset(f"state.{k}" for k in ("pos", "vel", "acc", "mass",
+                                            "alive"))
 
 def _local_rows_vs_sources(pos_rows, row_ids, pos_src, mass_src, src_ids,
                            params: SimParams, tile: int = 1024):
@@ -258,12 +262,6 @@ class ShardedSimulation:
                 bh_config = BHConfig(**opts)
             if strategy not in ("bh", "bh-replicated"):
                 strategy = "bh"
-            if strategy == "bh" and bh_config.refine_levels:
-                raise NotImplementedError(
-                    "density-adaptive refinement (profile='adaptive' or "
-                    "refine_levels) on the domain strategy 'bh' is not yet "
-                    f"ported to nbody_tpu_torch ({ROADMAP_REFINED_DOMAIN}); "
-                    "use strategy='bh-replicated'")
             pad_multiple = (bh_config.group_size * bh_config.chunk_groups
                             * n_dev)
         elif engine in ("brute", "brute-pallas"):
@@ -439,11 +437,22 @@ class ShardedSimulation:
 
     # -- checkpointing -------------------------------------------------------
 
-    def save(self, path: str, format: str = "pickle"):
-        """Rank 0 writes the gathered state as the JAX package's sharded
-        pickle payload; every rank returns once it is written.
-        ``format='orbax'`` raises (ROADMAP.md, queue 1, item 17d)."""
+    def save(self, path: str, format: str = "orbax"):
+        """``format='orbax'``: every rank writes its shard into a
+        ``torch.distributed.checkpoint`` directory (``utils/checkpoint.py``:
+        the per-particle arrays as ``Shard(0)`` DTensors, the time and the
+        params replicated), no gather.  ``format='pickle'``: rank 0 writes
+        the gathered state as the JAX package's sharded pickle payload;
+        every rank returns once it is written."""
         _check_format(format)
+        if format == "orbax":
+            st = self._state
+            checkpoint.save(
+                {"state": {f.name: getattr(st, f.name)
+                           for f in dataclasses.fields(st)},
+                 "params": self._params.to_numpy()},
+                path, self.mesh, _SHARDED)
+            return
         full = self._gathered()
         if self.mesh.rank == 0:
             with open(path, "wb") as f:
@@ -451,18 +460,27 @@ class ShardedSimulation:
                              "params": self._params.to_numpy()}, f)
         coll.psum(torch.zeros((), device=self.mesh.device), self.mesh)
 
-    def load(self, path: str, format: str = "pickle"):
-        """Every rank reads the pickle and takes its shard.  The restored
+    def load(self, path: str, format: str = "orbax"):
+        """``format='orbax'``: every rank restores its shard of the current
+        world size straight from the directory (a checkpoint of any world
+        size whose capacity splits over this one).  ``format='pickle'``:
+        every rank reads the pickle and takes its shard.  The restored
         point becomes the ``reset`` target."""
         _check_format(format)
-        with open(os.fspath(path), "rb") as f:
-            payload = pickle.load(f)
-        full = ParticleState.from_numpy(payload["state"], "cpu")
-        if full.capacity % self.mesh.world:
-            raise ValueError(f"capacity {full.capacity} does not split over "
-                             f"{self.mesh.world} ranks")
-        self._state = self._take_shard(full)
-        self._params = SimParams.from_numpy(payload["params"],
-                                            self.mesh.device)
+        dev = self.mesh.device
+        if format == "orbax":
+            payload = checkpoint.load(path, self.mesh, _SHARDED)
+            st = {k: v.to(dev) for k, v in payload["state"].items()}
+            self._state = ParticleState(**st)
+        else:
+            with open(os.fspath(path), "rb") as f:
+                payload = pickle.load(f)
+            full = ParticleState.from_numpy(payload["state"], "cpu")
+            if full.capacity % self.mesh.world:
+                raise ValueError(f"capacity {full.capacity} does not split "
+                                 f"over {self.mesh.world} ranks")
+            self._state = self._take_shard(full)
+        self._params = SimParams.from_numpy(
+            {k: np.asarray(v) for k, v in payload["params"].items()}, dev)
         self._initial = self._state
         return self

@@ -252,11 +252,33 @@ def test_compile_runs_one_step_and_keeps_the_state(compensated):
 @pytest.mark.parametrize("fmt", ["pickle", "orbax", "npz"])
 def test_save_load_take_the_jax_format_argument(fmt, tmp_path):
     """save/load take the JAX signature's ``format``: the pickle is
-    ported (and read by the JAX package), orbax raises naming its ROADMAP
-    item (17d), anything else is refused."""
+    ported (and read by the JAX package); 'orbax' writes a
+    torch.distributed.checkpoint directory, whose compensated state and
+    low words come back bitwise, and which holds the JAX package's orbax
+    tree (the payload without ``engine``); anything else is refused."""
     sim = make(100)
     sim.run(2)
     path = str(tmp_path / "ckpt")
+    if fmt == "orbax":
+        import torch.distributed.checkpoint as dcp
+
+        sim = make(100, compensated=True)
+        sim.run(3)
+        want = {k: getattr(sim.state, k).clone() for k in ("pos", "vel")}
+        lo, t = tuple(x.clone() for x in sim._lo), sim.elapsed
+        sim.save(path, format=fmt)
+        keys = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        top = {k.split(".")[0] for k in keys}
+        assert top == {"state", "params", "lo"}
+        sim.run(4)
+        sim.load(path, format=fmt)
+        for k, v in want.items():
+            assert torch.equal(getattr(sim.state, k), v), k
+        assert all(torch.equal(a, b) for a, b in zip(sim._lo, lo))
+        assert sim.elapsed == t
+        sim.run(1)
+        assert sim.elapsed > t and torch.isfinite(sim.state.pos).all()
+        return
     if fmt == "pickle":
         sim.save(path, format=fmt)
         other = make(100).load(path, format=fmt)
@@ -268,9 +290,7 @@ def test_save_load_take_the_jax_format_argument(fmt, tmp_path):
         np.testing.assert_array_equal(np.asarray(jsim.state.pos),
                                       sim.state.pos.numpy())
         return
-    err = NotImplementedError if fmt == "orbax" else ValueError
-    match = "item 17d" if fmt == "orbax" else "'pickle' or 'orbax'"
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match="'pickle' or 'orbax'"):
         sim.save(path, format=fmt)
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match="'pickle' or 'orbax'"):
         sim.load(path, format=fmt)

@@ -36,6 +36,9 @@ ADA_OPTS = dict(refine_levels=2, refine_cap=64, refine_threshold=16,
                 refine_frontier=256, refine_near_cell_cap=512,
                 refine_near_particle_cap=1024, refine_far_cell_cap=128,
                 refine_far_particle_cap=512, **BH_OPTS)
+# profile='adaptive' spelled with the small stack's fields (the resolver
+# then keeps them), on the domain strategy
+ADA_DOMAIN = dict(ADA_OPTS, profile="adaptive")
 # (engine, strategy, steps, capacity, engine options): the domain run at
 # 2048 keeps the 128 + 2 * 64 window inside every shard
 RUNS = {
@@ -60,17 +63,25 @@ def _run_case(strategy, **extra):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """world -> one {case: result} dict a rank."""
+    """world -> one {case: result} dict a rank.  The 2-rank spawn writes a
+    checkpoint directory that the 4-rank spawn, after it, loads."""
     out = {}
+    dcp = str(tmp_path_factory.mktemp("dcp") / "two_ranks")
     for world in (2, 4):
         cases = [(s, "run_steps", _run_case(s)) for s in RUNS]
         cases.append(("energy", "energy", dict(n=400, seed=4,
                                                capacity=None)))
         if world == 2:
             cases += [("surface", "surface", {}),
-                      ("cli", "cli", dict(argv=CLI_ARGS))]
+                      ("cli", "cli", dict(argv=CLI_ARGS)),
+                      ("cli_save", "cli", dict(argv=[
+                          *CLI_ARGS, "--save", dcp + "_cli"])),
+                      ("dcp_save", "dcp_save", dict(path=dcp))]
         else:
             cases += [
+                ("dcp_load", "dcp_load", dict(path=dcp)),
+                ("refined_domain", "run_steps",
+                 _run_case("bh", capacity=2048, opts=ADA_DOMAIN)),
                 ("refined", "run_steps",
                  _run_case("bh-replicated", capacity=2048, opts=ADA_OPTS)),
                 ("tree", "octree_sharded", {}),
@@ -131,6 +142,19 @@ def test_sharded_step_matches_jax(ranks, world, strategy):
         np.testing.assert_array_equal(r[strategy]["pos"], got["pos"])
     rtol, atol = TOL[strategy]
     np.testing.assert_allclose(got["pos"], want, rtol=rtol, atol=atol)
+
+
+def test_bh_domain_refined_matches_jax(ranks):
+    """profile='adaptive' with refine_levels on the domain strategy 'bh'
+    (the refined domain route: the deep re-sort, the refined tables merged
+    from their owner ranks, the refined near and far slab rows) on 4 ranks
+    against the JAX package's ShardedSimulation, five steps."""
+    got = ranks[4][0]["refined_domain"]
+    for r in ranks[4][1:]:
+        np.testing.assert_array_equal(r["refined_domain"]["pos"], got["pos"])
+    want, n_alive = _jax_run(4, "bh", capacity=2048, opts=ADA_DOMAIN)
+    assert got["n_alive"] == n_alive
+    np.testing.assert_allclose(got["pos"], want, rtol=1e-8, atol=1e-10)
 
 
 def test_bh_replicated_refined_matches_jax(ranks):
@@ -245,7 +269,9 @@ def test_surface_settings_particles_and_checkpoint(ranks):
     assert s["after"][0] > 0 and s["after"][1] == 128
     same_pos, same_t, path = s["roundtrip"]
     assert same_pos and same_t
-    assert "item 17d" in s["orbax"]
+    # the default format, a torch.distributed.checkpoint directory, round
+    # trips bitwise too
+    assert s["orbax"] == (True, True, True)
     # the port's sharded pickle loads in the JAX package
     jsim = JaxSharded(*self_gravitating_disc(200, seed=6), engine="brute",
                       n_devices=2, dtype=jnp.float64, **workers.COMMON)
@@ -290,6 +316,12 @@ def test_surface_bh_presets_and_validation(ranks):
         c = JaxSharded(pos, vel, mass, engine="bh", n_devices=2,
                        engine_options=opts, **f32)._bh_config
         assert got == {k: getattr(c, k) for k in got}
+    # profile='adaptive' runs on the domain strategy with JAX's stack
+    jsim = JaxSharded(pos, vel, mass, engine="bh", n_devices=2,
+                      engine_options=dict(profile="adaptive"), **f32)
+    assert s["adaptive_domain"] == ("bh",
+                                    dataclasses.asdict(jsim._bh_config))
+    assert s["adaptive_domain"][1]["refine_levels"] > 0
     errors = s["errors"]
     assert errors["brute-bh"][0] == "ValueError"
     assert "requires engine" in errors["brute-bh"][1]
@@ -298,8 +330,65 @@ def test_surface_bh_presets_and_validation(ranks):
     with pytest.raises(NotImplementedError) as e:
         JaxSharded(pos, vel, mass, engine="bh-lazy", n_devices=2, **f32)
     assert errors["lazy"] == ("NotImplementedError", str(e.value))
-    assert errors["adaptive-domain"][0] == "NotImplementedError"
-    assert "item 17e" in errors["adaptive-domain"][1]
+
+
+def test_cli_save_names_the_format_it_wrote(ranks, tmp_path):
+    """--save with --devices 2 writes a torch.distributed.checkpoint
+    directory (the sharded class's default, as the JAX package's orbax) and
+    says so in its JSON; a single-device --save writes the pickle and says
+    that (the JAX CLI reports the same key for both)."""
+    import json
+    import os
+
+    from nbody_tpu_torch import cli as tcli
+
+    got = json.loads(ranks[2][0]["cli_save"]["stdout"].strip())
+    assert got["checkpoint_format"] == "torch.distributed.checkpoint"
+    assert os.path.isdir(got["checkpoint"])
+    path = str(tmp_path / "one.pkl")
+    res = tcli.main(["-n", "100", "--steps", "1", "--engine", "brute",
+                     "--cpu", "--json", "--save", path])
+    assert res["checkpoint_format"] == "pickle" and os.path.isfile(path)
+
+
+def test_dcp_checkpoint_round_trips_and_reshards(ranks):
+    """save/load's default format on 2 ranks: the state comes back
+    bitwise after 4 more steps and the run steps on; the same directory
+    loads into 4 ranks bitwise (the capacity split 4 ways), as orbax
+    reshards into the current layout."""
+    saved = ranks[2][0]["dcp_save"]
+    for r in ranks[2]:
+        assert r["dcp_save"]["back"] == (True, True)
+        assert r["dcp_save"]["steps_on"]
+    for r in ranks[4]:
+        got = r["dcp_load"]
+        np.testing.assert_array_equal(got["pos"], saved["pos"])
+        assert got["elapsed"] == saved["elapsed"]
+        assert got["capacity"] * 4 == 256 and got["steps_on"]
+
+
+def test_dcp_checkpoint_at_world_size_one(tmp_path):
+    """In process, one rank: the Barnes-Hut domain run saved to a
+    directory, run on and loaded back bitwise; the directory holds no
+    pickle, and the pickle format stays available."""
+    pos, vel, mass = self_gravitating_disc(500, seed=0)
+    engine, strat, steps, cap, opts = RUNS["bh"]
+    sim = ShardedSimulation(pos, vel, mass, engine=engine, strategy=strat,
+                            engine_options=opts, capacity=cap,
+                            dtype=torch.float64, device="cpu", n_devices=1,
+                            **workers.COMMON)
+    sim.run(2)
+    want, t = sim.get_points()[0], sim.elapsed
+    path = tmp_path / "ck"
+    sim.save(str(path))
+    assert path.is_dir()
+    sim.run(3)
+    sim.load(str(path))
+    np.testing.assert_array_equal(sim.get_points()[0], want)
+    assert sim.elapsed == t
+    sim.save(str(tmp_path / "ck.pkl"), format="pickle")
+    sim.run(1)
+    assert np.isfinite(sim.get_points()[0]).all() and sim.elapsed > t
 
 
 def test_cli_devices_two_ranks(ranks):

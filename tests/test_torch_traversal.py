@@ -168,17 +168,30 @@ def test_theta_zero_is_the_direct_sum():
     ("quad_leaf", True, "item 18"), ("fb_quad", True, "item 18"),
     ("dim", 2, "item 18")])
 def test_unported_fields_raise(field, value, item):
-    """Only the field of the path not ported yet (wide, item 17c) raises,
-    naming its ROADMAP item.  The others (items 15, 16, 18) are ported:
-    each is accepted as the JAX package accepts it, the config equals the
-    JAX package's, and JAX's own checks raise with JAX's texts
-    (fb_quad without quad_leaf; the Morton depth limit, 10 in 3D, 15 in
-    2D; refine_frontier a multiple of the branch factor)."""
+    """Each field of ROADMAP items 15-18 is ported (the name is kept from
+    when some were refused): each is accepted as the JAX package accepts
+    it, the config equals the JAX package's, and JAX's own checks raise
+    with JAX's texts (fb_quad without quad_leaf; the Morton depth limit,
+    10 in 3D, 15 in 2D; refine_frontier a multiple of the branch factor;
+    wide with refine_levels, and wide with walk reuse or on the
+    single-chip walk, which has no target leaf codes)."""
     if item == "item 17":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1, item 17c"):
-            tt.BHConfig(**{field: value})
-        return
+        for cfg_cls in (tt.BHConfig, jt.BHConfig):
+            with pytest.raises(ValueError) as e:
+                cfg_cls(refine_levels=2, **{field: value})
+            assert "refine_levels does not support the wide row format" \
+                in str(e.value)
+        for fn in (tt.traverse_tree_cached, jt.traverse_tree_cached):
+            with pytest.raises(ValueError, match="walk reuse supports "
+                               "neither wide mode nor near_sym"):
+                fn(None, None, 1.0, 1.0, 0.02, fn.__globals__["BHConfig"](
+                    wide=True), 8)
+        _st, _p, pos, mass, _alive = disc(100, 128)
+        with pytest.raises(ValueError, match="requires target leaf codes"):
+            tt.bh_accel(pos, mass, Bounds.cube((0.0, 0.0, 0.0), 10.0,
+                                               device="cpu"), 1.0, 1.0, 0.02,
+                        tt.BHConfig(wide=True, max_level=3, group_size=64,
+                                    subgroups=8, start_level=1))
     kw = {field: value}
     if field == "fb_quad":
         for cfg_cls in (tt.BHConfig, jt.BHConfig):

@@ -91,21 +91,56 @@ def _sim(engine="brute", strategy=None, n=500, capacity=1024, seed=0,
     return ShardedSimulation(pos, vel, mass, **args)
 
 
-def _state(n, capacity, seed, kill=None):
-    """The disc as a float64 CPU state with particles [a, b) of ``kill``
-    dead: (state, params)."""
+def cluster_scene(n=1024, n_cluster=600, seed=7):
+    """tests/test_domain.py's straddling-cell scene: a tight cluster of
+    ``n_cluster`` points (one leaf cell at max_level 3, whose sorted range
+    spans several shards) in a uniform box: (pos, vel, mass), numpy."""
+    rng = np.random.default_rng(seed)
+    cluster = 0.05 * rng.standard_normal((n_cluster, 3)) + 1.0
+    rest = rng.uniform(-4.0, 4.0, (n - n_cluster, 3))
+    pos = np.concatenate([cluster, rest])
+    mass = rng.uniform(0.5, 1.5, (n,))
+    return pos, np.zeros_like(pos), mass
+
+
+#: the settings of each scene (the cluster's are tests/test_domain.py's)
+SCENE_PARAMS = {"disc": COMMON,
+                "cluster": dict(g_soft=0.05, theta2=1.0, bounds_width=10.0)}
+
+
+def _state(n, capacity, seed, kill=None, dtype=torch.float64, scene="disc"):
+    """The scene as a CPU state (the disc by default) with particles [a, b)
+    of ``kill`` dead: (state, params)."""
     from nbody_tpu_torch.core.state import ParticleState, SimParams
     from nbody_tpu_torch.scenes import self_gravitating_disc
 
-    pos, vel, mass = self_gravitating_disc(n, seed=seed)
+    if scene == "cluster":
+        pos, vel, mass = cluster_scene(n, seed=seed)
+    else:
+        pos, vel, mass = self_gravitating_disc(n, seed=seed)
     st = ParticleState.create(pos, vel, mass, capacity=capacity,
-                              dtype=torch.float64, device="cpu")
+                              dtype=dtype, device="cpu")
     if kill:
         alive = st.alive.clone()
         alive[kill[0]:kill[1]] = False
         st = dataclasses.replace(st, alive=alive)
-    params = SimParams.create(dtype=torch.float64, device="cpu", **COMMON)
+    params = SimParams.create(dtype=dtype, device="cpu",
+                              **SCENE_PARAMS[scene])
     return st, params
+
+
+@contextlib.contextmanager
+def _wide_n(value):
+    """ops/tree.py's WIDE_N lowered to ``value`` (None: as it is)."""
+    from nbody_tpu_torch.ops import tree
+
+    old = tree.WIDE_N
+    if value is not None:
+        tree.WIDE_N = value
+    try:
+        yield
+    finally:
+        tree.WIDE_N = old
 
 
 def _my(t, mesh):
@@ -150,30 +185,44 @@ def dist_gather(n=256, r=64, seed=1):
     return _dist_gather(_my(rows, mesh), _my(idx, mesh), mesh).numpy()
 
 
-def domain_tree(n=500, capacity=1024, seed=2, level=4, halo=64, kill=None):
-    """This rank's sorted rows, halo slab and leaf table."""
+def domain_tree(n=500, capacity=1024, seed=2, level=4, halo=64, kill=None,
+                **refine):
+    """This rank's sorted rows, halo slab and leaf table, and with
+    ``refine`` (build_domain_tree's refine_* arguments) the refined
+    tables, slot maps and stats."""
     from nbody_tpu_torch.parallel.domain import build_domain_tree
     from nbody_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device="cpu")
     st, params = _state(n, capacity, seed, kill)
     t = build_domain_tree(_my(st.pos, mesh), _my(st.effective_mass(), mesh),
-                          params.bounds, level, mesh, halo)
-    return {"rows_s": t.rows_s.numpy(), "ext8": t.ext8.numpy(),
-            "leaf": t.level_table[level].numpy()}
+                          params.bounds, level, mesh, halo, **refine)
+    out = {"rows_s": t.rows_s.numpy(), "ext8": t.ext8.numpy(),
+           "leaf": t.level_table[level].numpy()}
+    if refine:
+        out.update(refine_tables=[x.numpy() for x in t.refine_tables],
+                   refine_slot_leaf=t.refine_slot_leaf.numpy(),
+                   refine_child_slot=[x.numpy()
+                                      for x in t.refine_child_slot],
+                   refine_stats=t.refine_stats.numpy())
+    return out
 
 
-def domain_accel(cfg, n=500, capacity=2048, seed=0, kill=None):
-    """This rank's domain forces and walk statistics."""
+def domain_accel(cfg, n=500, capacity=2048, seed=0, kill=None,
+                 dtype="float64", scene="disc", wide_n=None):
+    """This rank's domain forces and walk statistics, in ``dtype``, with
+    ops/tree.py's WIDE_N lowered to ``wide_n`` (the wide row format at a
+    small N)."""
     from nbody_tpu_torch.ops.traversal import BHConfig
     from nbody_tpu_torch.parallel.domain import domain_accel as accel
     from nbody_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device="cpu")
-    st, p = _state(n, capacity, seed, kill)
-    acc, stats = accel(_my(st.pos, mesh), _my(st.effective_mass(), mesh),
-                       p.bounds, p.theta2, p.g, p.g_soft, BHConfig(**cfg),
-                       mesh)
+    st, p = _state(n, capacity, seed, kill, getattr(torch, dtype), scene)
+    with _wide_n(wide_n):
+        acc, stats = accel(_my(st.pos, mesh), _my(st.effective_mass(), mesh),
+                           p.bounds, p.theta2, p.g, p.g_soft,
+                           BHConfig(**cfg), mesh)
     return {"acc": acc.numpy(),
             **{k: v.numpy() for k, v in stats.items()}}
 
@@ -239,11 +288,13 @@ def surface():
     out["roundtrip"] = (np.array_equal(sim.get_points()[0], want),
                         sim.elapsed == t, path)
     sim.run(1)
-    for fmt in ("orbax",):
-        try:
-            sim.save(path + ".orbax", format=fmt)
-        except NotImplementedError as e:
-            out["orbax"] = str(e)
+    # the default format: a torch.distributed.checkpoint directory
+    want, t = sim.get_points()[0], sim.elapsed
+    sim.save(path + ".dcp")
+    sim.run(4)
+    sim.load(path + ".dcp")
+    out["orbax"] = (np.array_equal(sim.get_points()[0], want),
+                    sim.elapsed == t, os.path.isdir(path + ".dcp"))
 
     opts = dict(max_level=4, group_size=128, subgroups=8, window_pad=32,
                 near_particle_cap=512, near_cell_cap=256, start_level=1)
@@ -272,14 +323,47 @@ def surface():
                       ("adaptive-ring",
                        dict(engine="bh", strategy="ring",
                             opts=dict(profile="adaptive"))),
-                      ("lazy", dict(engine="bh-lazy")),
-                      ("adaptive-domain", dict(engine="bh",
-                                               opts=dict(profile="adaptive")))):
+                      ("lazy", dict(engine="bh-lazy"))):
         try:
             _sim(n=2000, seed=3, **f32, **kw)
         except (ValueError, NotImplementedError) as e:
             errors[label] = (type(e).__name__, str(e))
     out["errors"] = errors
+    sim = _sim(engine="bh", n=2000, seed=3, opts=dict(profile="adaptive"),
+               **f32)
+    out["adaptive_domain"] = (sim.strategy,
+                              dataclasses.asdict(sim._bh_config))
+    return out
+
+
+def dcp_save(path, n=200, seed=6):
+    """A ShardedSimulation saved to the directory ``path`` (the default
+    format), run 4 steps and loaded back: the points and time it saved,
+    whether the load gave them back bitwise, and whether it steps on."""
+    sim = _sim(n=n, seed=seed, capacity=None)
+    sim.run(3)
+    pts, t = sim.get_points()[0], sim.elapsed
+    sim.save(path)
+    sim.run(4)
+    sim.load(path)
+    back = (np.array_equal(sim.get_points()[0], pts), sim.elapsed == t)
+    sim.run(1)
+    return {"pos": pts, "elapsed": t, "back": back,
+            "steps_on": bool(np.isfinite(sim.get_points()[0]).all())
+            and sim.elapsed > t}
+
+
+def dcp_load(path, n=200, seed=9):
+    """A ShardedSimulation of another scene loaded from the directory
+    ``path`` (written at another world size): its points, time, and one
+    more step."""
+    sim = _sim(n=n, seed=seed, capacity=None)
+    sim.load(path)
+    out = {"pos": sim.get_points()[0], "elapsed": sim.elapsed,
+           "capacity": sim.state.capacity}
+    sim.run(1)
+    out["steps_on"] = (bool(np.isfinite(sim.get_points()[0]).all())
+                       and sim.elapsed > out["elapsed"])
     return out
 
 
