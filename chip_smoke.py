@@ -263,23 +263,27 @@ def ms(fn, reps):
 
 
 def split_call(run):
-    """One force call ``run(mark)`` split at its phase marks with CUDA
-    events (ms); the second of two calls is the one kept."""
+    """One force call ``run()`` split at its phase marks by the span
+    recorder (``nbody_tpu_torch/utils/profiling.py``: each phase's ms on
+    the card's timeline, a name's phases summed); the second of two calls
+    is the one kept."""
     import torch
+    from nbody_tpu_torch.utils import profiling
 
-    for _ in range(2):
-        events = []
-
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        mark("start")
-        run(mark)
-        torch.cuda.synchronize()
-        split = {name: round(events[i - 1][1].elapsed_time(ev), 3)
-                 for i, (name, ev) in enumerate(events) if i}
+    was = profiling.SPANS.on, profiling.SPANS.every
+    profiling.SPANS.enable()
+    try:
+        for _ in range(2):
+            with profiling.annotate("call", "cuda"):
+                run()
+            torch.cuda.synchronize()
+            rec = profiling.SPANS.resolve()[-1]
+    finally:
+        profiling.SPANS.on, profiling.SPANS.every = was
+    split = {}
+    for name, parent, _, _, ms, _ in rec["spans"][1:]:
+        if parent == 0:
+            split[name] = round(split.get(name, 0.0) + ms, 3)
     split["total"] = round(sum(split.values()), 3)
     return split
 
@@ -476,7 +480,7 @@ def adaptive_phase():
             + "; ".join(kparts))
         if label.startswith("1M deep"):
             # (d) one deep force call split at its phase marks
-            out["split"] = split_call(lambda mark: call(mark=mark))
+            out["split"] = split_call(call)
             # the refined tree potential on the same state beside the
             # fast-profile estimator --energy uses (the JAX package's too)
             u_ad, _ = tt.bh_potential(st.pos, m_eff, prm.bounds, prm.theta2,
@@ -1375,12 +1379,11 @@ def sharded_phase():
         split = ""
         if strategy == "bh":
             prm, cfg = sim.settings, sim._bh_config
-            d_split = split_call(lambda mark: domain_accel(
+            d_split = split_call(lambda: domain_accel(
                 st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg,
-                sim.mesh, mark=mark))
-            b_split = split_call(lambda mark: tt.bh_accel(
-                st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg,
-                mark=mark))
+                sim.mesh))
+            b_split = split_call(lambda: tt.bh_accel(
+                st.pos, m, prm.bounds, prm.theta2, prm.g, prm.g_soft, cfg))
             split = (f"; one force call split (ms): domain {d_split} "
                      f"against bh {b_split}")
         e0 = float(total_energy(st, sim.settings, method="bh"))
@@ -2341,9 +2344,9 @@ def main() -> int:
         st, params = bh_state(n)
         cfg = BHConfig.auto_for(st.capacity, **over)
         m_eff = st.effective_mass()
-        return split_call(lambda mark: bh_accel(
+        return split_call(lambda: bh_accel(
             st.pos, m_eff, params.bounds, params.theta2, params.g,
-            params.g_soft, cfg, mark=mark))
+            params.g_soft, cfg))
 
     split = force_split(1048575)
     smi = nvidia_smi()

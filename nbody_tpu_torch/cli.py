@@ -20,6 +20,10 @@ Example:
     torchrun --nproc-per-node 4 -m nbody_tpu_torch -n 1048575 \
         --engine bh --devices 4 --steps 10 --json
 
+``--profile DIR`` switches the span recorder on for the timed loop: the
+Chrome trace in DIR shows each step's phases, and the JSON result gives
+each span's median ms a step under ``spans``.
+
 ``--devices N`` (N > 1) runs ``ShardedSimulation`` on a process group of
 world size N: one the caller initialized, or one from ``torchrun``'s
 environment.  Every rank runs the same command; rank 0 prints.
@@ -42,6 +46,7 @@ from nbody_tpu_torch.ops.traversal import (
     resolve_adaptive_overrides,
 )
 from nbody_tpu_torch.scenes import SCENES
+from nbody_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "world size N, e.g. from torchrun --nproc-per-node N)")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the timed "
-                   "loop into DIR")
+                   "loop, with the span recorder's phases, into DIR (and "
+                   "each span's median ms a step under 'spans' in --json)")
     p.add_argument("--accurate", action="store_true",
                    help="BH accuracy profile: window pad 2048 (bh engines "
                    "only)")
@@ -247,11 +253,10 @@ def _timed_run(args, sim, engine_name, run_device, printer) -> dict:
 
     prof = contextlib.nullcontext()
     if args.profile:
-        from nbody_tpu_torch.utils.profiling import trace
-
-        prof = trace(args.profile)
+        prof = profiling.trace(args.profile)
 
     with prof:
+        since = time.time_ns()
         start = time.perf_counter()
         remaining = args.steps
         while remaining > 0:
@@ -272,6 +277,11 @@ def _timed_run(args, sim, engine_name, run_device, printer) -> dict:
         "device": (torch.cuda.get_device_name(run_device)
                    if run_device.type == "cuda" else "cpu"),
     }
+    if args.profile:
+        # each span's median ms a step, on the card's timeline there
+        result["spans"] = profiling.span_medians(
+            [r for r in profiling.SPANS.resolve()
+             if r["spans"][0][2] >= since])
     if args.energy:
         e1 = sim.energy(method=e_method)
         result.update(energy_initial=e0, energy_final=e1,

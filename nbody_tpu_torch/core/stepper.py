@@ -22,6 +22,12 @@ a stateful engine's carry (``bh-lazy``, ``bh`` with ``walk_every > 1``):
 those engines read one value back to the host a step (the moved fraction
 that decides a rebuild or a full walk, ``ops/traversal.py`` ``HOST_READS``);
 every other engine's step reads none.
+
+Each step is a span of the span recorder (``utils/profiling.py``):
+``step`` > ``drift`` (the half drift, the cull, the effective masses),
+``force`` (the engine's call, whose phases the Barnes-Hut path marks) and
+``kick`` (the kick and the last half drift).  With the recorder off, as by
+default, each costs a flag test.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from nbody_tpu_torch.core.integrators import Integrator, get_integrator
 from nbody_tpu_torch.core.state import ParticleState, SimParams
+from nbody_tpu_torch.utils.profiling import annotate
 
 
 def _carry_step(force_carry: Callable, integrator) -> Callable:
@@ -41,32 +48,41 @@ def _carry_step(force_carry: Callable, integrator) -> Callable:
     integ: Integrator = get_integrator(integrator)
 
     def step(state: ParticleState, carry, params: SimParams, dt=None):
+        with annotate("step", state.pos.device):
+            return _step(state, carry, params, dt)
+
+    def _step(state: ParticleState, carry, params: SimParams, dt):
         dt = params.dt if dt is None else float(dt)
         alive_col = state.alive[:, None]
 
-        # 1. half drift (only alive particles move)
-        pos = torch.where(alive_col, integ.pre_force(state.pos, state.vel, dt),
-                          state.pos)
+        with annotate("drift"):
+            # 1. half drift (only alive particles move)
+            pos = torch.where(alive_col,
+                              integ.pre_force(state.pos, state.vel, dt),
+                              state.pos)
 
-        # 2. open boundary: particles outside the box die
-        alive = state.alive & params.bounds.contains(pos)
-        alive_col = alive[:, None]
-        mass_eff = torch.where(alive, state.mass, torch.zeros_like(state.mass))
+            # 2. open boundary: particles outside the box die
+            alive = state.alive & params.bounds.contains(pos)
+            alive_col = alive[:, None]
+            mass_eff = torch.where(alive, state.mass,
+                                   torch.zeros_like(state.mass))
 
         # 3. forces
-        acc, carry = force_carry(pos, mass_eff, params, carry)
-        acc = torch.where(alive_col, acc, torch.zeros_like(acc))
+        with annotate("force"):
+            acc, carry = force_carry(pos, mass_eff, params, carry)
 
         # 4. kick + half drift
-        new_pos, new_vel = integ.after_force(pos, state.vel, acc, dt)
-        return ParticleState(
-            pos=torch.where(alive_col, new_pos, pos),
-            vel=torch.where(alive_col, new_vel, state.vel),
-            acc=acc,
-            mass=state.mass,
-            alive=alive,
-            time=state.time + dt,
-        ), carry
+        with annotate("kick"):
+            acc = torch.where(alive_col, acc, torch.zeros_like(acc))
+            new_pos, new_vel = integ.after_force(pos, state.vel, acc, dt)
+            return ParticleState(
+                pos=torch.where(alive_col, new_pos, pos),
+                vel=torch.where(alive_col, new_vel, state.vel),
+                acc=acc,
+                mass=state.mass,
+                alive=alive,
+                time=state.time + dt,
+            ), carry
 
     return step
 
@@ -172,32 +188,40 @@ def make_step_comp(force_fn: Callable, integrator="leapfrog") -> Callable:
                 torch.where(alive_col, pl2, pos_lo))
 
     def step(state: ParticleState, lo, params: SimParams, dt=None):
+        with annotate("step", state.pos.device):
+            return _step(state, lo, params, dt)
+
+    def _step(state: ParticleState, lo, params: SimParams, dt):
         dt = params.dt if dt is None else float(dt)
         pos_lo, vel_lo = lo
         pos, vel = state.pos, state.vel
 
-        # 1. pre drift (compensated)
-        if pre_f:
-            pos, pos_lo = drift(pos, pos_lo, vel, vel_lo, dt, pre_f,
-                                state.alive[:, None])
+        with annotate("drift"):
+            # 1. pre drift (compensated)
+            if pre_f:
+                pos, pos_lo = drift(pos, pos_lo, vel, vel_lo, dt, pre_f,
+                                    state.alive[:, None])
 
-        # 2. open boundary cull on the high word (the low word is ~2^-24
-        #    relative, far below the box-face quantum)
-        alive = state.alive & params.bounds.contains(pos)
-        alive_col = alive[:, None]
-        mass_eff = torch.where(alive, state.mass, torch.zeros_like(state.mass))
+            # 2. open boundary cull on the high word (the low word is
+            #    ~2^-24 relative, far below the box-face quantum)
+            alive = state.alive & params.bounds.contains(pos)
+            alive_col = alive[:, None]
+            mass_eff = torch.where(alive, state.mass,
+                                   torch.zeros_like(state.mass))
 
         # 3. forces (high word only)
-        acc = force_fn(pos, mass_eff, params)
-        acc = torch.where(alive_col, acc, torch.zeros_like(acc))
+        with annotate("force"):
+            acc = force_fn(pos, mass_eff, params)
 
         # 4. kick + post drift (compensated)
-        v2, vl2 = two_sum_add(vel, vel_lo, acc * dt)
-        vel = torch.where(alive_col, v2, vel)
-        vel_lo = torch.where(alive_col, vl2, vel_lo)
-        if post_f:
-            pos, pos_lo = drift(pos, pos_lo, vel, vel_lo, dt, post_f,
-                                alive_col)
+        with annotate("kick"):
+            acc = torch.where(alive_col, acc, torch.zeros_like(acc))
+            v2, vl2 = two_sum_add(vel, vel_lo, acc * dt)
+            vel = torch.where(alive_col, v2, vel)
+            vel_lo = torch.where(alive_col, vl2, vel_lo)
+            if post_f:
+                pos, pos_lo = drift(pos, pos_lo, vel, vel_lo, dt, post_f,
+                                    alive_col)
         new_state = ParticleState(pos=pos, vel=vel, acc=acc, mass=state.mass,
                                   alive=alive, time=state.time + dt)
         return new_state, (pos_lo, vel_lo)

@@ -45,6 +45,7 @@ from nbody_tpu_torch.ops.traversal import (
     empty_topo,
 )
 from nbody_tpu_torch.ops.tree import build_octree, tree_boxes
+from nbody_tpu_torch.utils.profiling import annotate
 
 
 def _fitter(options: dict):
@@ -96,12 +97,13 @@ def make_bh_engine(name: str = "bh", **options) -> Engine:
         as Python ints, the JAX engine's keys.  The boxes come from a tree
         built in the world frame, as the JAX engine builds it; the counters
         from a whole ``bh_accel`` (grid frame), whose kernels launch as in
-        a step."""
+        a step.  A root span ``aux`` of the span recorder."""
         c = fit(pos)
-        tree = build_octree(pos, mass, params.bounds, c.max_level, dim=c.dim,
-                            **_refine_args(c))
-        _acc, stats = bh_accel(pos, mass, params.bounds, params.theta2,
-                               params.g, params.g_soft, c)
+        with annotate("aux", pos.device):
+            tree = build_octree(pos, mass, params.bounds, c.max_level,
+                                dim=c.dim, **_refine_args(c))
+            _acc, stats = bh_accel(pos, mass, params.bounds, params.theta2,
+                                   params.g, params.g_soft, c)
         keys = ["accept_dropped", "frontier_fallback", "near_fallback",
                 "fb_spill"] + (["refine_build_dropped"] if c.refine_levels
                                else [])

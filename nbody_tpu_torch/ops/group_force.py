@@ -37,7 +37,8 @@ Each wrapper adds one to its entry of ``LAUNCHES`` where it launches its
 kernel; the masked and unmasked K3 launches are counted apart
 (``group_force_masked`` / ``group_force``).  Each reports its work to an
 open ``flops_of`` count (``ops/work.py``), whether it launches its kernel
-or runs its twin.
+or runs its twin, and K3's wrapper its pairs to ``work.TALLY`` while the
+span recorder is on.
 """
 
 from __future__ import annotations
@@ -207,6 +208,7 @@ def group_force(tgt8, slab, g, g_soft, *, tile, mask=None):
     cpu = _on_cpu(tgt8, slab)
     name = "group_force" if mask is None else "group_force_masked"
     work.record(name, "pair", work.group_work, tgt8, slab, tile, mask)
+    work.tally(name, work.group_work, tgt8, slab, tile, mask)
     if cpu:
         return work.plain(group_force_plain, tgt8, slab, g, g_soft,
                           tile=tile, mask=mask)

@@ -71,6 +71,7 @@ from nbody_tpu_torch.ops.tree import (
     refresh_octree,
 )
 from nbody_tpu_torch.ops.work import LOCK
+from nbody_tpu_torch.utils.profiling import mark
 
 # profile='dense' field stack (auto_for / make_bh_engine / --dense), as in
 # the JAX package (traversal.py:66)
@@ -1219,7 +1220,7 @@ def _slab_eval(slab, tgt8, center, g, eps2, g_soft, cfg: BHConfig, mode,
 
 
 def _dual_slab_eval(slab, tgt8, center, theta2, g, eps2, g_soft,
-                    cfg: BHConfig, mode, mark):
+                    cfg: BHConfig, mode):
     """``_slab_eval`` with the block-dual far field folded in: pad the slab
     to the eval tile, build the (target tile, source tile) acceptance mask,
     run the masked pair pass and add the accepted tiles' quadrupoles.
@@ -1340,8 +1341,7 @@ def _near_rows(pmass8, pidx, pvalid):
 
 
 def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
-                   g, eps2, g_soft, cfg: BHConfig, W: int, mode, mark,
-                   gstart):
+                   g, eps2, g_soft, cfg: BHConfig, W: int, mode, gstart):
     """Slab assembly + force eval: window rows + near gather (+ the
     multipole slab for monopole runs) -> one pair pass with the block-dual
     far field (K3, K4 on the dual rows), the group's own square (K5, with
@@ -1362,7 +1362,7 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
     else:
         slab = torch.cat([wrows, nrows, walk["mono"]], dim=1)
     acc, n_dual = _dual_slab_eval(slab, tgt8, walk["center"], theta2, g,
-                                  eps2, g_soft, cfg, mode, mark)
+                                  eps2, g_soft, cfg, mode)
     if cfg.near_sym:
         acc = acc + _self_square_eval(tgt8, mcen, g, eps2, g_soft, cfg, mode)
         mark("K5")
@@ -1374,10 +1374,6 @@ def _assemble_eval(pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2,
         mark("K4")
     slab_fill = (slab[..., 3] != 0.0).to(slab.dtype).mean()
     return acc + acc_fb, n_dual, slab_fill
-
-
-def _no_mark(_name):
-    pass
 
 
 def _pack(tree, g_soft, cfg: BHConfig, n: int):
@@ -1512,15 +1508,16 @@ def _unsort(acc, tree, cfg: BHConfig, n: int):
 
 
 def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
-                  mark=None, return_topo: bool = False, chunk_range=None,
+                  return_topo: bool = False, chunk_range=None,
                   n_shards: int = 1):
     """Group traversal + force over a built tree: collect walk -> slab
     assembly (window rows + near gather + multipole slab) -> one eval pass
     -> scatter back to the original particle order.
 
     Returns (acc [n, dim] in original order, stats), and the walk's
-    ``WalkTopo`` after them with ``return_topo``.  ``mark``, if given, is
-    called with a phase name at each phase boundary (on-card timing).
+    ``WalkTopo`` after them with ``return_topo``.  Each phase ends in a
+    ``mark`` of the span recorder (``utils/profiling.py``): "walk", "fb",
+    "assembly+dual", "K3", "K4 dual", "K5", "K4", "scatter".
 
     Sharded mode (``nbody_tpu/ops/traversal.py:2161``): with
     ``chunk_range=(first_chunk,)`` only this shard's 1/``n_shards`` of the
@@ -1538,7 +1535,6 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
             "walk-topology caching (walk_every > 1 / bh-lazy) does not "
             "support refine_levels: refined slab rows have no "
             "(level, cell id) address to re-gather by")
-    mark = mark or _no_mark
     dtype = tree.pos_s.dtype
     mode = _resolve_eval_mode(cfg, tree.pos_s)
     groups = None
@@ -1561,7 +1557,7 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
     pidx, pvalid, ntot = _near_lists(tree, walk, cfg)
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, pidx, pvalid, acc_fb, theta2, g, eps2,
-        g_soft, cfg, W, mode, mark, gidx[:, 0])
+        g_soft, cfg, W, mode, gidx[:, 0])
     out = acc.reshape(-1, 3) if sharded else _unsort(acc, tree, cfg, n)
     mark("scatter")
     stats = {
@@ -1584,7 +1580,7 @@ def traverse_tree(tree, bounds, theta2, g, g_soft, cfg: BHConfig, n: int,
 
 
 def traverse_tree_cached(tree, topo: WalkTopo, theta2, g, g_soft,
-                         cfg: BHConfig, n: int, mark=None):
+                         cfg: BHConfig, n: int):
     """Forces over a frozen walk topology (``nbody_tpu/ops/traversal.py:
     2358``): no collect walk; every interaction the topology lists is
     evaluated at the current positions.
@@ -1604,7 +1600,6 @@ def traverse_tree_cached(tree, topo: WalkTopo, theta2, g, g_soft,
     if cfg.wide or cfg.near_sym:
         raise ValueError("walk reuse supports neither wide mode nor "
                          "near_sym")
-    mark = mark or _no_mark
     mode = _resolve_eval_mode(cfg, tree.pos_s)
     dtype = tree.pos_s.dtype
     eps2, pmass8, tgt8, gidx, W = _pack(tree, g_soft, cfg, n)
@@ -1636,7 +1631,7 @@ def traverse_tree_cached(tree, topo: WalkTopo, theta2, g, g_soft,
                 center=_group_center(tgt8[..., :3], tgt8[..., 3]))
     acc, n_dual, slab_fill = _assemble_eval(
         pmass8, tgt8, tree, walk, topo.pidx, topo.pvalid, acc_fb, theta2, g,
-        eps2, g_soft, cfg, W, mode, mark, gidx[:, 0])
+        eps2, g_soft, cfg, W, mode, gidx[:, 0])
     out = _unsort(acc, tree, cfg, n)
     mark("scatter")
     zero = torch.zeros((), dtype=torch.int64, device=out.device)
@@ -1691,7 +1686,7 @@ def _build_args(cfg: BHConfig) -> dict:
 def bh_accel_reuse(pos, mass, bounds, theta2, g, g_soft, tree,
                    topo: WalkTopo, age: int, cfg: BHConfig = None,
                    walk_every: int = 2, rebuild_frac: float = 0.5,
-                   move_cells: float = 1.0, mark=None):
+                   move_cells: float = 1.0):
     """Barnes-Hut forces with walk reuse (``nbody_tpu/ops/traversal.py:
     2506``): a build and a full walk every ``walk_every`` steps and
     whenever more than ``rebuild_frac`` of the alive particles strayed
@@ -1705,25 +1700,26 @@ def bh_accel_reuse(pos, mass, bounds, theta2, g, g_soft, tree,
     pos = pos - bounds.center
     bounds = bounds.centered()
     frac = _moved_fraction(tree, pos, mass, bounds, cfg, move_cells)
+    mark("moved_frac")
     do_full = age % walk_every == 0 or frac > rebuild_frac
     if do_full:
-        tree = build_octree(pos, mass, bounds, cfg.max_level, mark=mark,
+        tree = build_octree(pos, mass, bounds, cfg.max_level,
                             **_build_args(cfg))
         acc, stats, topo = traverse_tree(tree, bounds, theta2, g, g_soft,
-                                         cfg, pos.shape[0], mark=mark,
-                                         return_topo=True)
+                                         cfg, pos.shape[0], return_topo=True)
     else:
         tree = refresh_octree(tree, pos, mass, quad=cfg.multipole == "quad",
                               quad_leaf=cfg.quad_leaf)
+        mark("refresh")
         acc, stats = traverse_tree_cached(tree, topo, theta2, g, g_soft, cfg,
-                                          pos.shape[0], mark=mark)
+                                          pos.shape[0])
     stats = dict(stats, full_walk=int(do_full), moved_frac=frac)
     return acc, stats, tree, topo, 1 if do_full else age + 1
 
 
 def bh_accel_lazy(pos, mass, bounds, theta2, g, g_soft, tree,
                   cfg: BHConfig = None, rebuild_frac: float = 0.3,
-                  move_cells: float = 1.0, mark=None):
+                  move_cells: float = 1.0):
     """Barnes-Hut forces over the carried tree's binning, refreshed from
     the current positions, with a rebuild (the sort) only when more than
     ``rebuild_frac`` of the alive particles strayed more than
@@ -1733,15 +1729,17 @@ def bh_accel_lazy(pos, mass, bounds, theta2, g, g_soft, tree,
     pos = pos - bounds.center
     bounds = bounds.centered()
     frac = _moved_fraction(tree, pos, mass, bounds, cfg, move_cells)
+    mark("moved_frac")
     rebuilt = frac > rebuild_frac
     if rebuilt:
-        tree = build_octree(pos, mass, bounds, cfg.max_level, mark=mark,
+        tree = build_octree(pos, mass, bounds, cfg.max_level,
                             **_build_args(cfg))
     else:
         tree = refresh_octree(tree, pos, mass, quad=cfg.multipole == "quad",
                               quad_leaf=cfg.quad_leaf)
+        mark("refresh")
     acc, stats = traverse_tree(tree, bounds, theta2, g, g_soft, cfg,
-                               pos.shape[0], mark=mark)
+                               pos.shape[0])
     stats = dict(stats, rebuilt=int(rebuilt), moved_frac=frac)
     return acc, stats, tree
 
@@ -1808,8 +1806,7 @@ def _refine_args(cfg: BHConfig) -> dict:
                 refine_threshold=cfg.refine_threshold_resolved)
 
 
-def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
-             mark=None):
+def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None):
     """Full Barnes-Hut acceleration: build + traverse + scatter back.
 
     pos [N, D], mass [N] (zero for dead) -> (acc [N, D], stats).  The
@@ -1820,10 +1817,9 @@ def bh_accel(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None,
     _resolve_eval_mode(cfg, pos)  # refuse a run the kernels cannot take
     pos_c = pos - bounds.center
     b0 = bounds.centered()
-    tree = build_octree(pos_c, mass, b0, cfg.max_level, mark=mark,
-                        **_build_args(cfg), **_refine_args(cfg))
-    return traverse_tree(tree, b0, theta2, g, g_soft, cfg, pos.shape[0],
-                         mark=mark)
+    tree = build_octree(pos_c, mass, b0, cfg.max_level, **_build_args(cfg),
+                        **_refine_args(cfg))
+    return traverse_tree(tree, b0, theta2, g, g_soft, cfg, pos.shape[0])
 
 
 def bh_potential(pos, mass, bounds, theta2, g, g_soft, cfg: BHConfig = None):

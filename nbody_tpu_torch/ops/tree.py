@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from nbody_tpu_torch.ops import morton
+from nbody_tpu_torch.utils.profiling import mark
 
 @dataclass(frozen=True)
 class LinearOctree:
@@ -405,7 +406,7 @@ def _pyramid_tables(leaf_mass, leaf_mpos, leaf_counts, max_level: int,
 def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
                  quad: bool = False, quad_leaf: bool = True,
                  refine_levels: int = 0, refine_cap: int = 8192,
-                 refine_threshold: int = 512, mark=None) -> LinearOctree:
+                 refine_threshold: int = 512) -> LinearOctree:
     """pos [N, D], mass [N] (dead particles already at mass 0) -> the
     octree (``nbody_tpu/ops/tree.py:507``).  ``bounds`` is the domain box;
     the grid is its half-leaf-shifted version (grid_bounds).
@@ -421,9 +422,8 @@ def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
     particles (_build_refined).  The particles are then sorted by deep
     Morton codes on the same grid, so ``code_s`` (their leaf-level
     prefixes) and the dense pyramid are unchanged; only the order within a
-    leaf cell differs.  ``mark``, if given, is called with "build" after
-    the dense pyramid and "refined build" after the refined levels
-    (on-card timing)."""
+    leaf cell differs.  The span recorder's ``mark`` closes "build" after
+    the dense pyramid and "refined build" after the refined levels."""
     n = pos.shape[0]
     _check_range_dtype(n, pos.dtype)
     branch = 1 << dim
@@ -470,8 +470,7 @@ def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
                              quad_leaf)
         all_quad = _quad_pyramid(q, top, branch, pos.dtype)
 
-    if mark is not None:
-        mark("build")
+    mark("build")
     refine = {}
     if refine_levels > 0:
         tables, slot_leaf, child_maps, rstats = _build_refined(
@@ -480,8 +479,7 @@ def build_octree(pos, mass, bounds, max_level: int = 7, dim: int = 3,
             pos.dtype)
         refine = dict(refine_tables=tables, refine_slot_leaf=slot_leaf,
                       refine_child_slot=child_maps, refine_stats=rstats)
-        if mark is not None:
-            mark("refined build")
+        mark("refined build")
 
     return LinearOctree(pos_s=pos_s, mass_s=mass_s, code_s=code_s,
                         order=order, leaf_starts=leaf_starts,

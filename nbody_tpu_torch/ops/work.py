@@ -4,15 +4,22 @@ launch counters, and the thread-local count that
 ``utils.profiling.flops_of`` opens.
 
 A wrapper reports its work through ``record``, whether it then launches its
-kernel or runs its plain twin on the CPU.  Nothing is computed while no
-count is open: the pair counts read the masses back to the host, which a
-step must not wait for.
+kernel or runs its plain twin on the CPU, and K3's wrapper also through
+``tally``.  The pair counts are tensors on the inputs' device, computed
+only while a count is open or (``tally``) the span recorder is on
+(``utils/profiling.py`` ``SPANS``): a few small kernels a call, and no host
+read.  An open count reads its sums back once, when it closes; ``TALLY``
+keeps them on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+import torch
+
+from nbody_tpu_torch.utils import profiling
 
 # FP32 arithmetic a pair (an FMA counts two; compares, selects and integer
 # work are not FP32 operations and are not counted), read off the kernels:
@@ -35,12 +42,20 @@ LOCK = threading.Lock()
 _local = threading.local()
 
 
+#: while the span recorder is on, the K3 wrapper's calls (``tally``) by
+#: name, ``group_force`` and ``group_force_masked``: ``{"pairs": the pairs
+#: they needed (a 0-d int64 tensor on their device, never read back here),
+#: "bytes": their bytes, "calls": their number}`` (the benchmark copies it
+#: at both ends of its traced slice)
+TALLY = {}
+
+
 class WorkCount:
     """The work of one thread's kernel wrapper calls while a count is open:
-    FP32 operations by wrapper name, and bytes.  ``aten`` is the
-    ``FlopCounterMode`` counting the ops around the wrappers, if any, and
-    ``twin_aten`` its flops that came from plain twins run in place of a
-    kernel (already counted by the pair table)."""
+    FP32 operations by wrapper name (ints once the count has closed), and
+    bytes.  ``aten`` is the ``FlopCounterMode`` counting the ops around the
+    wrappers, if any, and ``twin_aten`` its flops that came from plain twins
+    run in place of a kernel (already counted by the pair table)."""
 
     def __init__(self, aten=None):
         self.flops = {}
@@ -59,6 +74,7 @@ def counting(aten=None):
         yield count
     finally:
         _local.count = prev
+        count.flops = {k: int(v) for k, v in count.flops.items()}
 
 
 def record(name: str, kind: str, needs, *args):
@@ -71,6 +87,26 @@ def record(name: str, kind: str, needs, *args):
     pairs, nbytes = needs(*args)
     count.flops[name] = count.flops.get(name, 0) + pairs * PAIR_OPS[kind]
     count.bytes += nbytes
+
+
+def tally(name: str, needs, *args):
+    """With the span recorder on, add ``needs(*args)`` = (pairs, bytes) of
+    one ``name`` call to ``TALLY``; a flag test when it is off."""
+    if not profiling.SPANS.on:
+        return
+    pairs, nbytes = needs(*args)
+    with LOCK:
+        t = TALLY.get(name)
+        TALLY[name] = ({"pairs": pairs, "bytes": nbytes, "calls": 1}
+                       if t is None else
+                       {"pairs": t["pairs"] + pairs,
+                        "bytes": t["bytes"] + nbytes,
+                        "calls": t["calls"] + 1})
+
+
+def reset_tally():
+    with LOCK:
+        TALLY.clear()
 
 
 def plain(fn, *args, **kwargs):
@@ -93,8 +129,8 @@ def plain(fn, *args, **kwargs):
 # ---------------------------------------------------------------------------
 
 
-def _nnz(x) -> int:
-    return int((x != 0).sum())
+def _nnz(x):
+    return (x != 0).sum()
 
 
 def targets_work(pos_t, pos, mass):
@@ -125,8 +161,8 @@ def group_work(tgt8, slab, tile, mask):
     if mask is None:
         return B * _nnz(slab[..., 3]), nbytes
     nz = (slab[..., 3] != 0).reshape(G, S // tile, tile).sum(-1)  # [G, S/t]
-    kept = (~mask.bool()).to(nz.dtype) * nz[:, None, :]
-    return (B // mask.shape[1]) * int(kept.sum()), nbytes + mask.numel()
+    kept = torch.where(mask.bool(), 0, nz[:, None, :]).sum()
+    return (B // mask.shape[1]) * kept, nbytes + mask.numel()
 
 
 def quad_work(tgt8, qslab):
@@ -138,5 +174,5 @@ def quad_work(tgt8, qslab):
 def self_work(tgt8, msrc):
     """K5: each group's unordered pairs with a massive member once."""
     G, B = msrc.shape
-    ng = (msrc != 0).sum(dim=1).tolist()
-    return sum(m * (m - 1) // 2 + m * (B - m) for m in ng), G * B * 28
+    m = (msrc != 0).sum(dim=1)
+    return (m * (m - 1) // 2 + m * (B - m)).sum(), G * B * 28

@@ -64,7 +64,6 @@ from nbody_tpu_torch.ops.traversal import (
     _fb_all_quad,
     _fb_eval,
     _group_collect,
-    _no_mark,
     _quad_eval,
     _quad_slab,
     _resolve_eval_mode,
@@ -85,6 +84,7 @@ from nbody_tpu_torch.ops.tree import (
     wide_ranges,
 )
 from nbody_tpu_torch.parallel import collectives as coll
+from nbody_tpu_torch.utils.profiling import mark
 
 
 def _ring_route(rows, dest, mesh):
@@ -401,7 +401,7 @@ def _far_rows(rows_s, pidx, pvalid, mesh, wide: bool):
 
 
 def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
-                 cfg: BHConfig, mesh, mark=None):
+                 cfg: BHConfig, mesh):
     """Barnes-Hut acceleration of this rank's shard over the domain tree
     (``domain.py:455``).  Returns (acc [n_loc, 3] in this shard's original
     order, stats: the walk's counters summed over this rank's groups, the
@@ -409,9 +409,8 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
     ``dual_tiles``, and with ``refine_levels`` the refined-near and
     refined-far particles a group, ``refine_near_totals`` /
     ``refine_far_totals`` [G], and the build's ``refine_build_dropped``).
-    ``mark`` is called at phase boundaries (on-card timing), as in
-    ``traverse_tree``."""
-    mark = mark or _no_mark
+    Each phase ends in a ``mark`` of the span recorder, as in
+    ``traverse_tree``, and the forces' route to their owners in "route"."""
     mode = _resolve_eval_mode(cfg, pos_loc)
     # grid frame, as bh_accel: every f32 sum bounded by the half-width
     pos_loc = pos_loc - bounds.center
@@ -505,7 +504,7 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
         parts.append(walk["mono"])
     slab = torch.cat(parts, dim=1)
     acc, n_dual = _dual_slab_eval(slab, tgt8, walk["center"], theta2, g,
-                                  eps2, g_soft, cfg, mode, mark)
+                                  eps2, g_soft, cfg, mode)
     if cfg.multipole == "quad":
         qslab = _quad_slab(walk["mono"], tree.all_quad,
                            -1 if cfg.quad_leaf else cfg.max_level,
