@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs twenty-three phases, each
+(one nvcc per source, all at once), then runs twenty-four phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -132,7 +132,12 @@ printing one line and stopping the script with a non-zero exit on failure:
      wide row format forced on (``WIDE_N`` lowered) for one domain force
      call on the 2^20 disc against the narrow call, K3 on the wide slab;
      and ``torch.distributed.checkpoint`` round trips of the sphere's
-     ``ShardedSimulation`` and of a compensated ``Simulation``.
+     ``ShardedSimulation`` and of a compensated ``Simulation``;
+ 24. the build's double-float prefix table (``prefix_phase``): the kernel
+     against the exact sums beside its twin at 100096 and 2^20 rows (within
+     twice the twin's error, two calls bitwise equal), both timed, and one
+     100k ``bh`` step's three tables and launches with the twin and with the
+     kernel.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -155,6 +160,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "nbody_tpu_torch/csrc/pairwise.cu"
 SOURCE_BH = "nbody_tpu_torch/csrc/group_force.cu"
 SOURCE_MXU = "nbody_tpu_torch/csrc/pairwise_mxu.cu"
+SOURCE_PS = "nbody_tpu_torch/csrc/prefix_scan.cu"
 G, EPS = 1.0, 0.02  # the main-path settings (the CLI defaults)
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM,
@@ -260,6 +266,26 @@ def ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps):
+    """Device time of one call (ms): torch.profiler's sum over the kernels
+    ``reps`` calls launch, over ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+    require(us > 0, "torch.profiler saw no device time")
+    return us / 1e3 / reps
 
 
 def split_call(run):
@@ -1679,6 +1705,107 @@ def refined_domain_phase(single_rate=None):
     return out
 
 
+# phase 24: the Barnes-Hut build's double-float prefix table
+# (csrc/prefix_scan.cu), the one kernel of the port with no Pallas
+# counterpart (the JAX package's lax.associative_scan), at the 100k and 2^20
+# builds' sizes
+
+PREFIX_ROWS = (100096, 1 << 20)
+PREFIX_STEP_N = 100000
+
+
+def prefix_phase():
+    """(a) The table kernel against the exact sums beside its twin
+    (tests/torch_prefix_cases.py: seeded values on a grid that makes every
+    partial's error an exact integer) at 100096 and 2^20 rows, K = 4 and 3
+    in f32, and 100096 x 4 in f64: within twice the twin's own error, two calls
+    bitwise equal.  (b) Kernel and twin at [rows, 4] f32 with CUDA events,
+    beside the kernel's bytes bound (each input byte read once, each table
+    byte written once).  (c) One ``bh`` step of the 100k disc: its
+    ``prefix_table`` calls, and its launches (torch.profiler: runtime API,
+    card) with the twin swapped into the build and with the kernel; steps/s
+    of both, alternating."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_prefix_cases import DF_UNIT, exact_error, prefix_case
+
+    from nbody_tpu_torch import Simulation
+    from nbody_tpu_torch.ops import prefix_scan as ps
+    from nbody_tpu_torch.ops import tree
+    from nbody_tpu_torch.scenes import self_gravitating_disc
+
+    dev = torch.device("cuda", 0)
+    parts, worst = [], 0.0
+    cases = [(n, k, np.float32) for n in PREFIX_ROWS for k in (4, 3)]
+    cases.append((PREFIX_ROWS[0], 4, np.float64))
+    for n, k, dt in cases:
+        v, s = prefix_case(n, k, dt, seed=n + k)
+        x = torch.from_numpy(v).to(dev)
+        got = ps.prefix_table(x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, ps.prefix_table(x)),
+                f"prefix table {n} x {k}: two calls differ")
+        twin = exact_error(v, s, ps.prefix_table_plain(x).cpu().numpy())
+        err = exact_error(v, s, got.cpu().numpy())
+        ratio = err / max(twin, DF_UNIT[dt])
+        require(ratio <= 2.0, f"prefix table {n} x {k} {dt.__name__}: "
+                f"{err:.3e} against the twin's {twin:.3e}")
+        worst = max(worst, err) if dt == np.float32 else worst
+        parts.append(f"{n}x{k} {dt.__name__} {err:.2e} (twin {twin:.2e})")
+
+    times = {}
+    for n in PREFIX_ROWS:
+        x = torch.from_numpy(prefix_case(n, 4, np.float32)[0]).to(dev)
+        kernel = ms(lambda: ps.prefix_table(x), 200)
+        plain = ms(lambda: ps.prefix_table_plain(x), 20)
+        card = device_ms(lambda: ps.prefix_table(x), 20)
+        launched = launches_in(lambda: ps.prefix_table(x))
+        bnd = ((n * 4 + (n + 1) * 8) * 4 / BYTES_PER_S * 1e3, "bytes")
+        times[n] = (kernel, plain, bnd)
+        parts.append(f"[{n}, 4] f32 kernel {kernel:.4f} ms host-paced, "
+                     f"{card:.4f} ms on the card (launches: {launched}), "
+                     f"twin {plain:.3f} ms, bound {bnd[0]:.4f} ms")
+
+    pos, vel, mass = self_gravitating_disc(PREFIX_STEP_N, seed=0)
+    sim = Simulation(pos, vel, mass, engine="bh", device="cuda")
+    sim.run(2)
+    ps.reset_launch_counts()
+    sim.run(1)
+    torch.cuda.synchronize()
+    calls = ps.launch_counts()["prefix_table"]
+    require(calls == 3, f"a 100k bh step made {calls} prefix_table calls")
+    kernel_launches = launches_in(lambda: sim.run(1))
+    rates = {"twin": [], "kernel": []}
+    try:
+        tree.prefix_table = ps.prefix_table_plain
+        sim.run(1)
+        twin_launches = launches_in(lambda: sim.run(1))
+        for name in ("kernel", "twin", "twin", "kernel"):
+            tree.prefix_table = (ps.prefix_table if name == "kernel"
+                                 else ps.prefix_table_plain)
+            sim.run(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(40)
+            torch.cuda.synchronize()
+            rates[name].append(round(40 / (time.perf_counter() - t0), 2))
+    finally:
+        tree.prefix_table = ps.prefix_table
+    require(kernel_launches[1] < twin_launches[1] - 450,
+            f"a 100k bh step launched {kernel_launches} with the kernel, "
+            f"{twin_launches} with the twin")
+    parts.append(f"one 100k bh step: {calls} tables, launches (runtime, card)"
+                 f" {twin_launches} with the twin, {kernel_launches} with "
+                 f"the kernel; steps/s twin {rates['twin']}, kernel "
+                 f"{rates['kernel']}")
+    print("[24 prefix table] " + " | ".join(parts), flush=True)
+    kernel, plain, bnd = times[PREFIX_ROWS[0]]
+    return {"launches": calls, "err": worst, "ms": kernel, "plain_ms": plain,
+            "bound": bnd}
+
+
 def pick(args, kw, groups):
     """A kernel call restricted to a few groups (all of them for the
     block-dual rows, whose 'groups' are target tiles)."""
@@ -1983,24 +2110,6 @@ def main() -> int:
           f"plain (1024 alive rows) {e_huge:.3e}", flush=True)
 
     # -- 6. times ----------------------------------------------------------
-    def device_ms(fn, reps):
-        """Device time of one call (ms): torch.profiler's sum over the
-        kernels ``reps`` calls launch, over ``reps``."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "self_device_time_total", None)
-            us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
-        require(us > 0, "torch.profiler saw no device time")
-        return us / 1e3 / reps
-
     def pair(kernel, plain, reps_k, reps_p):
         """plain, kernel, kernel, plain; the mean of each side."""
         p1 = ms(plain, reps_p)
@@ -3028,6 +3137,9 @@ def main() -> int:
 
     # -- 23. the refined domain route, wide rows, checkpoints ---------------
     refined = refined_domain_phase(adaptive["rates"][ADAPTIVE_RUNS[0][0]])
+
+    # -- 24. the build's prefix table kernel --------------------------------
+    prefix = prefix_phase()
     smi = nvidia_smi()
 
     # the main paths' launches: phases 9, 19, 20, 21, 22 and 23 (each run
@@ -3084,6 +3196,13 @@ def main() -> int:
               SOURCE_MXU, "nbody_tpu/ops/pairwise.py:462",
               mxu_launches["pairwise_acc_mxu"], k6_abs, k6_ms, k6_plain,
               k6_bnd),
+        # no Pallas kernel: the JAX package's lax.associative_scan; its
+        # error is the largest over the prefix of |values| (f32), and
+        # torch.cumsum is no library counterpart (no TwoSum)
+        entry("prefix_table (the 100k build's [100096, 4] f32 table)",
+              SOURCE_PS, "nbody_tpu/ops/tree.py:235", prefix["launches"],
+              prefix["err"], prefix["ms"], prefix["plain_ms"],
+              prefix["bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

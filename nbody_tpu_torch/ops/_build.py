@@ -171,6 +171,11 @@ def _load() -> ctypes.CDLL:
     lib.nbody_k3_stage.restype = i
     lib.nbody_k4_unroll.argtypes = []
     lib.nbody_k4_unroll.restype = i
+    ll = ctypes.c_longlong
+    lib.nbody_prefix_table.argtypes = [p, ll, i, i, p, p, p]
+    lib.nbody_prefix_table.restype = i
+    lib.nbody_prefix_scratch.argtypes = [ll, i]
+    lib.nbody_prefix_scratch.restype = ll
     lib.nbody_rsqrt_sweep.argtypes = [p, p]
     lib.nbody_rsqrt_sweep.restype = i
     lib.nbody_error_string.argtypes = [i]

@@ -9,7 +9,8 @@ The octree is a dense pyramid of per-level cell statistics over the
 cells 8c..8c+7 of level l+1 (a quadtree: 4^l cells, 4 children, the stored
 coordinates kept 3-wide with z = 0).  The build is (1) Morton-encode and
 stably sort the particles, (2) leaf statistics from double-float prefix
-sums over the sorted particles, (3) reshape-sums up the pyramid.  Mass-weighted position
+sums over the sorted particles (``ops/prefix_scan.py``: a kernel on the
+card), (3) reshape-sums up the pyramid.  Mass-weighted position
 sums (not COMs) are stored, so empty cells are exact zeros and a parent is a
 plain sum of its children.
 
@@ -29,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from nbody_tpu_torch.ops import morton
+from nbody_tpu_torch.ops.prefix_scan import prefix_table
 from nbody_tpu_torch.utils.profiling import mark
 
 @dataclass(frozen=True)
@@ -98,12 +100,12 @@ def grid_bounds(bounds, max_level: int):
 
 
 def _quad_moments(pos_s, mass_s):
-    """Raw second moments m p pᵀ per particle, packed 6-wide
-    (xx, yy, zz, xy, xz, yz)."""
+    """Raw second moments m p pᵀ per particle as two [N, 3] tables: the
+    diagonal (xx, yy, zz) and the off-diagonal (xy, xz, yz)."""
     w = pos_s * mass_s[:, None]
-    return torch.stack([w[:, 0] * pos_s[:, 0], w[:, 1] * pos_s[:, 1],
-                        w[:, 2] * pos_s[:, 2], w[:, 0] * pos_s[:, 1],
-                        w[:, 0] * pos_s[:, 2], w[:, 1] * pos_s[:, 2]], dim=1)
+    return w * pos_s, torch.stack([w[:, 0] * pos_s[:, 1],
+                                   w[:, 0] * pos_s[:, 2],
+                                   w[:, 1] * pos_s[:, 2]], dim=1)
 
 
 def _sum_children(x, branch: int):
@@ -116,43 +118,11 @@ def _sum_children(x, branch: int):
     return s
 
 
-def _build_prefix_table(vals):
-    """Double-float prefix sums of sorted per-particle values: [N, K<=4] ->
-    [N+1, 8] (hi columns | lo columns | zero padding).
-
-    A log-step (Hillis-Steele) scan with the TwoSum combiner of the JAX
-    package's ``lax.associative_scan`` (``tree.py:242-251``): every partial
-    is a hi + lo pair accurate to ~2^-46 relative, so a boundary difference
-    keeps that accuracy where a plain f32 cumsum difference would put
-    ~ulp(total) on every range (a one-particle leaf's COM could move by the
-    whole domain)."""
-    n, k = vals.shape
-    if k > 4:
-        raise ValueError(f"prefix tables take at most 4 columns, got {k}")
-    hi, lo = vals, torch.zeros_like(vals)
-    shift = 1
-    while shift < n:
-        ah, al = hi[:-shift], lo[:-shift]  # earlier partials
-        bh, bl = hi[shift:], lo[shift:]
-        s = ah + bh
-        z = s - ah
-        e = (ah - (s - z)) + (bh - z)  # TwoSum rounding error of s
-        hi = torch.cat([hi[:shift], s])
-        lo = torch.cat([lo[:shift], e + al + bl])
-        shift *= 2
-    zero = torch.zeros((1, k), dtype=vals.dtype, device=vals.device)
-    parts = [torch.cat([zero, hi]), torch.cat([zero, lo])]
-    if k < 4:
-        parts.append(torch.zeros((n + 1, 8 - 2 * k), dtype=vals.dtype,
-                                 device=vals.device))
-    return torch.cat(parts, dim=1)
-
-
 def _prefix_range_sums(vals, starts):
     """Per-range sums of sorted per-particle values: ``vals`` [N, K<=4],
     ``starts`` [C + 1] sorted range boundaries -> [C, K], as the
     double-float boundary difference (hi_e - hi_s) + (lo_e - lo_s)."""
-    p = _build_prefix_table(vals)
+    p = prefix_table(vals)
     k = vals.shape[1]
     r = p[starts.long()]
     d = r[1:] - r[:-1]
@@ -160,7 +130,7 @@ def _prefix_range_sums(vals, starts):
 
 
 def _range_sums_from_table(p, starts, ends, k: int):
-    """Per-range sums from a ``_build_prefix_table`` table for arbitrary
+    """Per-range sums from a ``prefix_table`` table for arbitrary
     (start, end) pairs (the refined build's ranges are not consecutive
     boundaries), with _prefix_range_sums' double-float accuracy."""
     d = p[ends.long()] - p[starts.long()]
@@ -176,11 +146,11 @@ def _build_quad(pos_s, mass_s, leaf_starts, max_level: int, branch: int,
     prefix-range differences over every leaf boundary or every branch-th
     one (the variant that file keeps at ``tree.py:188-195``), ordered and
     free of float atomics."""
-    m6 = _quad_moments(pos_s, mass_s)
+    diag, off = _quad_moments(pos_s, mass_s)
     stride = 1 if quad_leaf else branch
     starts = leaf_starts[::stride]
-    q = torch.cat([_prefix_range_sums(m6[:, :3], starts),
-                   _prefix_range_sums(m6[:, 3:], starts)], dim=1)
+    q = torch.cat([_prefix_range_sums(diag, starts),
+                   _prefix_range_sums(off, starts)], dim=1)
     return q, max_level if quad_leaf else max_level - 1
 
 
@@ -299,7 +269,7 @@ def _leaf_stats(pos_s, mass_s, leaf_starts):
     package's leaf branches (prefix sums when 4N >= 8^L, sorted
     segment-sums otherwise) become this path.  Returns (the prefix table,
     which the refined build reuses, leaf_mass, leaf_mpos)."""
-    table = _build_prefix_table(
+    table = prefix_table(
         torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
     leaf = _range_sums_from_table(table, leaf_starts[:-1], leaf_starts[1:], 4)
     return table, leaf[:, 0], leaf[:, 1:4]
@@ -573,7 +543,7 @@ def build_octree_sharded(pos_loc, mass_loc, pos_all, mass_all, bounds,
     refine = {}
     if refine_levels > 0:
         if table is None:
-            table = _build_prefix_table(
+            table = prefix_table(
                 torch.cat([mass_s[:, None], pos_s * mass_s[:, None]], dim=1))
         tables, slot_leaf, child_maps, rstats = _build_refined(
             table, deep_code_s, leaf_starts[1:] - leaf_starts[:-1],

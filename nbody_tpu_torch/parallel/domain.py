@@ -70,8 +70,8 @@ from nbody_tpu_torch.ops.traversal import (
     _window_rows,
     fit_chunks,
 )
+from nbody_tpu_torch.ops.prefix_scan import prefix_table
 from nbody_tpu_torch.ops.tree import (
-    _build_prefix_table,
     _build_quad,
     _check_range_dtype,
     _compact,
@@ -143,7 +143,7 @@ def _build_refined_domain(rows_s, deep_s, leaf_starts, max_level: int,
     i32 = dict(dtype=torch.int32, device=rows_s.device)
     kids = torch.arange(branch, **i32)
     # my slice's double-float prefix table of (m, m x, m y, m z)
-    table = _build_prefix_table(torch.cat(
+    table = prefix_table(torch.cat(
         [rows_s[:, 3:4], rows_s[:, :3] * rows_s[:, 3:4]], dim=1))
 
     starts, ends = leaf_starts[:-1], leaf_starts[1:]

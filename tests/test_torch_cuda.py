@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K6 against their plain torch twins on the card, and
-the bh (with and without near_sym, and refined) and brute-pallas-mxu
-engines on the card against the CPU path.
+"""The CUDA kernels K1-K6 against their plain torch twins on the card, the
+build's prefix table kernel against the exact sums, and the bh (with and
+without near_sym, and refined) and brute-pallas-mxu engines on the card
+against the CPU path.
 
 Marked ``cuda``: they need an NVIDIA GPU (sm_90a) and nvcc, and skip
 without them.  Run them on the card with
@@ -13,11 +14,14 @@ import pytest
 import torch
 
 from nbody_tpu_torch import Simulation
-from nbody_tpu_torch.core.state import ParticleState
+from nbody_tpu_torch.core.state import Bounds, ParticleState
 from nbody_tpu_torch.ops import group_force as gf
 from nbody_tpu_torch.ops import pairwise as pw
+from nbody_tpu_torch.ops import prefix_scan as ps
 from nbody_tpu_torch.ops import traversal as tt
+from nbody_tpu_torch.ops import tree as ttree
 from nbody_tpu_torch.scenes import self_gravitating_disc
+from torch_prefix_cases import DF_UNIT, exact_error, prefix_case
 from torch_slabs import (cluster_quad_case, quad_case, self_square_case,
                          species_slab)
 
@@ -687,3 +691,105 @@ def test_cached_slabs_and_forces_on_card(dev, monkeypatch):
     assert k3 and bool(((k3[0][2][..., 3] == 0)
                         & (k3[0][2][..., 4] != 0)).any())
     _kernels_match_twins(calls)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 100096, (1 << 20) + 3])
+def test_prefix_kernel_against_exact_sums(dev, n, k, dtype):
+    """The build's prefix table kernel: every partial within twice the
+    twin's own error against the exact sums (or within the pair's unit of
+    rounding where the twin comes out exact); row 0 and the padding
+    columns zero; one wrapper launch counted."""
+    v, s = prefix_case(n, k, dtype, seed=n + k)
+    x = torch.from_numpy(v).to(dev)
+    ps.reset_launch_counts()
+    got = ps.prefix_table(x)
+    torch.cuda.synchronize()
+    assert ps.launch_counts() == {"prefix_table": 1}
+    assert got.is_cuda and got.dtype == x.dtype and got.shape == (n + 1, 8)
+    g = got.cpu().numpy()
+    assert not g[0].any() and not g[:, 2 * k:].any()
+    twin = exact_error(v, s, ps.prefix_table_plain(x).cpu().numpy())
+    assert exact_error(v, s, g) <= 2 * max(twin, DF_UNIT[dtype])
+
+
+def _disc_build(dev):
+    """The 100k disc's ``bh`` build on ``dev`` at its ``auto_for`` tier:
+    (pos, effective mass, bounds, max_level, build_octree's options)."""
+    pos, m, _ = _disc(100000, 100096, 37, dev)
+    cfg = tt.BHConfig.auto_for(100096)
+    return (pos, m, Bounds.cube((0.0, 0.0, 0.0), 10.0, device=dev),
+            cfg.max_level, tt._build_args(cfg))
+
+
+_TREE_FIELDS = ("pos_s", "mass_s", "code_s", "order", "leaf_starts",
+                "level_mass", "level_mpos", "level_table", "all_quad")
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+    return torch.equal(a, b)
+
+
+def test_prefix_kernel_builds_are_bitwise_repeatable(dev):
+    """Two builds of the 100k disc on the card are bitwise equal, and a
+    refresh at the build's positions equals the build, all enqueued with no
+    host sync."""
+    pos, m, b, level, kw = _disc_build(dev)
+    ttree.build_octree(pos, m, b, level, **kw)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = ttree.build_octree(pos, m, b, level, **kw)
+        t2 = ttree.build_octree(pos, m, b, level, **kw)
+        fresh = ttree.refresh_octree(t1, pos, m, quad_leaf=kw["quad_leaf"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert t1.all_quad is not None
+    for name in _TREE_FIELDS:
+        assert _same(getattr(t1, name), getattr(t2, name)), name
+        assert _same(getattr(fresh, name), getattr(t1, name)), name
+
+
+def test_prefix_kernel_tree_matches_cpu(dev):
+    """The 100k disc's tree on the card against its CPU tree (the twin's
+    tables): the integers exact, the statistics within
+    tests/test_torch_tree.py's per-cell f32 tolerance (1e-6 of the mass,
+    of mass x half-width for the position sums and of mass x half-width^2
+    for the second moments)."""
+    pos, m, b, level, kw = _disc_build(dev)
+    gpu = ttree.build_octree(pos, m, b, level, **kw)
+    cpu = ttree.build_octree(pos.cpu(), m.cpu(),
+                             Bounds.cube((0.0, 0.0, 0.0), 10.0, device="cpu"),
+                             level, **kw)
+    rtol, half = 1e-6, 5.0
+    for name in ("order", "code_s", "leaf_starts"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for g, c in zip(gpu.level_table, cpu.level_table):
+        assert torch.equal(g[:, 4:].cpu(), c[:, 4:])
+    for gm, cm, gp, cp in zip(gpu.level_mass, cpu.level_mass,
+                              gpu.level_mpos, cpu.level_mpos):
+        cm64 = cm.double()
+        assert bool(((gm.cpu().double() - cm64).abs() <= rtol * cm64).all())
+        d = (gp.cpu().double() - cp.double()).abs()
+        assert bool((d <= rtol * half * cm64[:, None]).all())
+    levels = gpu.all_quad.shape[0]
+    m_all = torch.cat([c.double() for c in cpu.level_mass])[:levels]
+    d = (gpu.all_quad.cpu().double() - cpu.all_quad.double()).abs()
+    assert bool((d <= rtol * half * half * m_all[:, None]).all())
+
+
+def test_prefix_table_launches_per_bh_step(dev):
+    """A bh step of the 100k disc takes its three prefix tables (the leaf
+    stats and the two second-moment halves) from the kernel: three wrapper
+    launches a step."""
+    pos, vel, mass = self_gravitating_disc(100000, seed=0)
+    sim = Simulation(pos, vel, mass, engine="bh", device="cuda")
+    sim.run(1)
+    ps.reset_launch_counts()
+    sim.run(2)
+    torch.cuda.synchronize()
+    assert ps.launch_counts() == {"prefix_table": 6}
