@@ -3,7 +3,7 @@
 bfloat16, the precision below the configuration's float32, read beside the
 program's own numbers on the same states.
 
-    python3 benchmark/control.py --workload disc-100k.batch --seeds 1,2,3 \
+    python3 benchmark/control.py --workload disc-100k.headless --seeds 1,2,3 \
         --seconds 50
 
 Runs the cell as ``run.py`` does (set-up and a full window, since the

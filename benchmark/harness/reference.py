@@ -42,11 +42,39 @@ def inside(pos, center, width):
     return ((pos >= c - half) & (pos <= c + half)).all(dim=-1)
 
 
-def direct_accel(tgt, src, mass, g, eps, chunk=64):
+#: the most that ``direct_accel``'s temporaries take at once
+SUM_BUDGET = 4 << 30
+#: values a (target, source) pair holds at once in ``direct_accel``: the
+#: offset ``d`` (3), its square (3) and their sum (1) at the most in the
+#: second line, and a copy of ``d`` (3) should the contraction make one
+PAIR_VALUES = 10
+#: the targets a pass takes where the budget allows it
+MOST_TARGETS = 64
+
+
+def sum_chunk(n_src: int, itemsize: int, budget: int = SUM_BUDGET) -> int:
+    """The targets ``direct_accel`` takes a pass over ``n_src`` sources of
+    ``itemsize`` bytes: ``MOST_TARGETS``, or fewer where their
+    temporaries (``sum_bytes``) would pass ``budget``; at least 1."""
+    fit = budget // (PAIR_VALUES * itemsize * max(1, n_src))
+    return max(1, min(MOST_TARGETS, fit))
+
+
+def sum_bytes(chunk: int, n_src: int, itemsize: int) -> int:
+    """The bytes ``direct_accel``'s temporaries take at once for
+    ``chunk`` targets."""
+    return PAIR_VALUES * itemsize * chunk * n_src
+
+
+def direct_accel(tgt, src, mass, g, eps, budget=SUM_BUDGET):
     """The exact softened sum of step 3 at the targets ``tgt`` [K, 3] over
     the sources ``src`` [N, 3] with masses ``mass`` [N] (zero for a dead
-    row), computed in the dtype of the inputs, ``chunk`` targets at a
-    time."""
+    row), computed in the dtype of the inputs, ``sum_chunk`` targets a
+    pass: 64 where their temporaries stay under ``budget`` bytes (4 GiB
+    by default, which holds 64 up to N = 838860 in float64), fewer above,
+    down to one target a pass over the sources.  A target's sum is the
+    same whatever the chunk."""
+    chunk = sum_chunk(src.shape[0], src.element_size(), budget)
     eps2 = torch.as_tensor(eps, dtype=src.dtype, device=src.device) ** 2
     out = torch.empty_like(tgt)
     for i in range(0, tgt.shape[0], chunk):

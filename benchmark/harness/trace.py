@@ -15,6 +15,10 @@ per-layer readers get (``Slice``):
     longest idle gaps by the host operation that launched the work ending
     each gap.
 
+In a cell of more than one card the slice is rank 0's process alone: its
+card's operations, its counters and spans; the other ranks run untraced
+and wait for it in their collectives (``harness/ranks.py``).
+
 The trace file is written under ``TMPDIR`` and deleted once read.
 """
 

@@ -4,6 +4,7 @@ that runs a cell there on the CPU (the program's plain-torch path) the way
 ``run.py`` runs it on the card, past the look for a card."""
 
 import contextlib
+import copy
 import io
 import json
 import shutil
@@ -37,22 +38,26 @@ def pytest_configure(config):
 
 
 def tiny_manifest(traffics=("batch", "view")) -> dict:
-    m = json.loads((ROOT / "BENCHMARK.json").read_text())
+    real = json.loads((ROOT / "BENCHMARK.json").read_text())
+    m = copy.deepcopy(real)
     m["configs"] = [{"name": "disc-tiny", "source": "test",
                      "file": "benchmark/configs/disc-tiny.json",
                      "reduced": [], "why": "a test's configuration"}]
     m["workloads"] = [{"name": f"disc-tiny.{t}", "config": "disc-tiny",
                        "traffic": t, "chips": 1, "why": "a test's cell"}
                       for t in traffics]
-    # the metrics of disc-100k.<mix> go to the small configuration's cell
-    # of the same mix
+    # the metrics of a cell go to the small configuration's cell of its
+    # mix's kind (``disc-100k.headless``, kind ``batch``: ``disc-tiny.batch``)
+    from harness import manifest
+
+    tiny = {w["name"]: "disc-tiny." + manifest.traffic_of(w, BENCH)["kind"]
+            for w in real["workloads"]}
     cells = {w["name"] for w in m["workloads"]}
     for kind in ("end_to_end", "per_layer"):
         for met in m[kind]:
             if "workloads" in met:
                 met["workloads"] = sorted(
-                    {"disc-tiny." + c.split(".", 1)[1]
-                     for c in met["workloads"]} & cells)
+                    {tiny[c] for c in met["workloads"]} & cells)
         m[kind] = [met for met in m[kind] if met.get("workloads", True)]
     if "view" in traffics:
         for kind, met in VIEW_METRICS:
@@ -87,6 +92,67 @@ def tree(tmp_path):
         json.dumps(TINY))
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(tiny_manifest()))
     return tmp_path
+
+
+#: a configuration of the sharded system for the cells of four ranks: the
+#: Morton-range domain decomposition on gloo ranks
+SHARD = dict(TINY, name="disc-shard", n=4095, check_rows=512,
+             system="nbody_tpu_torch.parallel.sharded:ShardedSimulation",
+             system_options={"strategy": "bh"})
+del SHARD["capacity"]
+#: one step a call, so that a window on the CPU holds a few calls
+BATCH1 = {"kind": "batch", "chunk": 1, "warm_steps": 1,
+          "trace_seconds": 0.5, "host_trace_steps": 1}
+
+
+def ranks_checkout(root: Path) -> Path:
+    """A checkout at ``root`` for runs of several ranks as processes: the
+    benchmark, a copy of the program (a run takes only the program of its
+    own checkout), ``tests/cpu_entry.py`` beside ``run.py``, and cells of
+    ``disc-shard`` on four ranks (``batch1``, ``view``) beside the small
+    configuration's on one."""
+    shutil.copytree(BENCH, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copytree(ROOT / "nbody_tpu_torch", root / "nbody_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(BENCH / "tests" / "cpu_entry.py", root / "benchmark")
+    (root / "benchmark/configs/disc-tiny.json").write_text(json.dumps(TINY))
+    (root / "benchmark/configs/disc-shard.json").write_text(
+        json.dumps(SHARD))
+    (root / "benchmark/traffic/batch1.json").write_text(json.dumps(BATCH1))
+    m = tiny_manifest()
+    m["configs"].append({"name": "disc-shard", "source": "test",
+                         "file": "benchmark/configs/disc-shard.json",
+                         "reduced": [], "why": "a test's configuration"})
+    for t in ("batch1", "view"):
+        m["workloads"].append({"name": f"disc-shard.{t}",
+                               "config": "disc-shard", "traffic": t,
+                               "chips": 4, "why": "a test's cell"})
+    for kind in ("end_to_end", "per_layer"):
+        for met in m[kind]:
+            if "disc-tiny.batch" in met.get("workloads", ()):
+                met["workloads"].append("disc-shard.batch1")
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+    return root
+
+
+def run_entry(root: Path, cell: str, out: Path, seed=2**31 + 41,
+              seconds=1.0, trace=0, env=None, timeout=600):
+    """Run ``cell`` of ``root`` (a ``ranks_checkout``) as ``run.py`` runs
+    on the card, rank 0 a process of its own: (exit code, standard output,
+    standard error, seconds until it ended on the wall clock's
+    ``time.time()``).  ``out`` is the entry's ``CPU_ENTRY_DIR``."""
+    import os
+    import subprocess
+
+    out.mkdir(parents=True, exist_ok=True)
+    p = subprocess.run(
+        [sys.executable, "benchmark/cpu_entry.py", "--workload", cell,
+         "--seed", str(seed), "--seconds", str(seconds), "--trace",
+         str(trace)], cwd=root, capture_output=True, text=True,
+        timeout=timeout, env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "CPU_ENTRY_DIR": str(out), **(env or {})})
+    return p.returncode, p.stdout, p.stderr, time.time()
 
 
 def run_cell(root: Path, cell: str, seed=3, seconds=1.0, trace=0,

@@ -1,5 +1,6 @@
 """The import guard, and the runs that must end without a result."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -24,9 +25,12 @@ def test_the_guard_passes(name):
     assert device.forbidden_modules({name: None}) == []
 
 
+CELL = json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"][0]
+
+
 def _run_py(cwd, env=None):
     return subprocess.run(
-        [sys.executable, "benchmark/run.py", "--workload", "disc-100k.batch",
+        [sys.executable, "benchmark/run.py", "--workload", CELL["name"],
          "--seed", "5", "--seconds", "1", "--trace", "0"], cwd=cwd,
         capture_output=True, text=True, timeout=300,
         env={**os.environ, **(env or {})})

@@ -141,3 +141,70 @@ def test_a_system_outside_the_program_is_refused(tree):
     with pytest.raises(manifest.ManifestError):
         run_cell(tree, "disc-tiny.batch", config_edit=lambda c: c.update(
             system="nbody_tpu.api:Simulation"))
+
+
+def test_reset_every_starts_each_run_from_the_scene():
+    """With ``reset_every`` no state the window makes is more steps from
+    the runs' start than that, the start is the scene evolved
+    ``settle_steps`` in set-up, set-up's steps after it count towards the
+    first run, and the check's step after the window never resets."""
+    from harness import traffic
+
+    calls = []
+
+    class Sim:
+        def run(self, n):
+            calls.append(n)
+
+        def reset(self):
+            calls.append("reset")
+
+        def init(self):
+            calls.append("init")
+
+    class Card:
+        team = None
+
+        def sync(self):
+            pass
+
+    drv = traffic.generator("batch")(
+        Sim(), Card(), {"chunk": 10, "warm_steps": 10, "reset_every": 30,
+                        "settle_steps": 45})
+    drv.step_once()
+    drv.warm()
+    win = drv.window(0.05)
+    drv.check_step()
+    assert calls[:6] == [1, 45, "init", 10, 10, 10]
+    assert calls[6] == "reset"
+    assert calls[-1] == 1 and calls[-2] == 10
+    age, ages = 0, []
+    for c in calls[3:-1]:
+        age = 0 if c == "reset" else age + c
+        ages.append(age)
+    assert max(ages) <= 30 and ages[-1] > 0
+    assert win["resets"] == calls.count("reset") > 1
+    assert win["steps"] == 10 * calls[4:-1].count(10)
+
+
+def test_a_run_with_resets_is_correct(tree):
+    """The check after a window of runs from a settled start, on the
+    program's own ``Simulation.init`` and ``reset``: correct, and the
+    window reset."""
+    mix = {"kind": "batch", "chunk": 1, "warm_steps": 1, "reset_every": 1,
+           "settle_steps": 2, "trace_seconds": 0.5, "host_trace_steps": 1}
+    (tree / "benchmark/traffic/reset3.json").write_text(json.dumps(mix))
+    m = json.loads((tree / "BENCHMARK.json").read_text())
+    m["workloads"].append({"name": "disc-tiny.reset3", "config": "disc-tiny",
+                           "traffic": "reset3", "chips": 1,
+                           "why": "a test's cell"})
+    for met in m["end_to_end"] + m["per_layer"]:
+        if "disc-tiny.batch" in met.get("workloads", ()):
+            met["workloads"].append("disc-tiny.reset3")
+    (tree / "BENCHMARK.json").write_text(json.dumps(m))
+    rc, result, err = run_cell(tree, "disc-tiny.reset3", seed=2**31 + 23,
+                                seconds=3.0)
+    assert rc == 0 and result["correct"], err
+    window = next(l for l in err.splitlines()
+                  if l.startswith("benchmark: window "))
+    assert json.loads(window.split(" ", 2)[2])["resets"] >= 1
