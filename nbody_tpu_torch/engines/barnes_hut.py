@@ -11,8 +11,9 @@ Engine names:
     when too many particles left their cells (stateful)
 
 Options (``engine_options``): any ``BHConfig`` field, plus ``profile``
-('fast', 'accurate', 'dense' or 'adaptive': the deep refined stack,
-``ADAPTIVE_OVERRIDES``, whose fields the caller's override).
+('fast', 'accurate', 'dense', 'adaptive': the deep refined stack,
+``ADAPTIVE_OVERRIDES``, or 'domain': ``DOMAIN_OVERRIDES``, whose fields
+the caller's override).
 ``near_sym=True`` evaluates each group's own square once per unordered pair
 (the same force set, another summation order).  ``walk_every=K > 1`` makes
 ``bh`` stateful: the collect walk runs every K steps (and when more than
@@ -36,6 +37,8 @@ from nbody_tpu_torch.engines import Engine
 from nbody_tpu_torch.ops.traversal import (
     ADAPTIVE_OVERRIDES,
     DENSE_OVERRIDES,
+    DOMAIN_OVERRIDES,
+    PROFILES,
     BHConfig,
     _build_args,
     _refine_args,
@@ -73,13 +76,14 @@ def _initial_tree(pos, mass, params, c: BHConfig):
 
 def make_bh_engine(name: str = "bh", **options) -> Engine:
     profile = options.pop("profile", "fast")
-    if profile not in ("fast", "accurate", "dense", "adaptive"):
-        raise ValueError(f"profile must be 'fast', 'accurate', 'dense' or "
-                         f"'adaptive', got {profile!r}")
+    if profile not in PROFILES:
+        raise ValueError(f"profile must be one of {PROFILES}, got "
+                         f"{profile!r}")
     if profile == "accurate":
         options.setdefault("window_pad", 2048)
-    elif profile in ("dense", "adaptive"):
-        stack = DENSE_OVERRIDES if profile == "dense" else ADAPTIVE_OVERRIDES
+    elif profile != "fast":
+        stack = {"dense": DENSE_OVERRIDES, "adaptive": ADAPTIVE_OVERRIDES,
+                 "domain": DOMAIN_OVERRIDES}[profile]
         for k, v in stack.items():
             options.setdefault(k, v)
     # walk reuse: engine options of the JAX package, not BHConfig fields

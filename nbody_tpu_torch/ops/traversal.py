@@ -105,6 +105,26 @@ ADAPTIVE_MIDN_OVERRIDES = dict(
     near_cell_cap=4096, fb_cap=2048, refine_frontier=2048,
     refine_near_cell_cap=8192, refine_near_particle_cap=32768)
 
+# profile='domain': the domain route's tier for the wide rows (N >= 2^24
+# over several cards), a port divergence (the JAX package has no such
+# tier).  Set on four H100s on the disc at 2^25, 2^23 rows a card, where
+# the JAX package's preset reads p99 0.146 against the exact sum: level-8
+# leaves, a window that holds a group's own clump cells, frontier and
+# accept budgets that the level-8 walk does not overflow, near and far
+# budgets that hold a group's near field on its own rank and across a
+# rank's edge, and Barnes' modified accept test for the star's corner
+# cells.  It holds bh's envelope there at the scene and ~45 steps on, not
+# ~190 steps on, where the cold disc's clumps have grown (ROADMAP queue 3
+# item 2b).
+DOMAIN_OVERRIDES = dict(max_level=8, window_pad=16384, frontier_cap=16384,
+                        accept_cap=8192, fb_cap=512,
+                        near_particle_cap=65536, far_particle_cap=16384,
+                        accept_offset=True)
+#: ShardedSimulation's domain route takes profile 'domain' by default from
+#: this many rows on more than one card (the wide rows, ops/tree.py WIDE_N)
+DOMAIN_MIN_N = 1 << 24
+PROFILES = ("fast", "accurate", "dense", "adaptive", "domain")
+
 #: contrast above this = steep-core scene (auto-detection threshold)
 STEEP_CONTRAST = 40.0
 #: the deep stack where frac_over128_l7 reaches this, the tight-box stack
@@ -180,7 +200,12 @@ class BHConfig:
     ``wide`` is the domain path's row format for N >= 2^24
     (``traversal.py:441``): hi/lo node-table ranges (``decode_ranges``),
     fallback containment by Morton prefix and no index compare in the
-    pair eval, set by ``parallel/domain.py`` from ``wide_ranges``."""
+    pair eval, set by ``parallel/domain.py`` from ``wide_ranges``.
+    ``accept_offset`` (the port's alone, off but in profile 'domain')
+    takes Barnes' modified accept test in the walk: a node's distance from
+    the group less its COM's offset from its cell's centre must clear the
+    cell width, so that a cell whose mass sits at one corner (the disc's
+    star makes its cells so) is opened where its far side comes near."""
 
     max_level: int = 7
     dim: int = 3
@@ -220,6 +245,7 @@ class BHConfig:
     refine_near_particle_cap: int = 8192
     refine_far_cell_cap: int = 512
     refine_far_particle_cap: int = 4096
+    accept_offset: bool = False
 
     def __post_init__(self):
         branch = 1 << self.dim
@@ -308,10 +334,11 @@ class BHConfig:
         for parity; they are still to be decided again on the H100.
         'adaptive' without positions takes the deep stack at
         ADAPTIVE_CUT_MIN_N and above, the mid-N stack below
-        (``resolve_adaptive_overrides`` picks by scene)."""
-        if profile not in ("fast", "accurate", "dense", "adaptive"):
-            raise ValueError(f"profile must be 'fast', 'accurate', 'dense' "
-                             f"or 'adaptive', got {profile!r}")
+        (``resolve_adaptive_overrides`` picks by scene); 'domain' is the
+        port's tier for the domain route's wide rows (``DOMAIN_OVERRIDES``)."""
+        if profile not in PROFILES:
+            raise ValueError(f"profile must be one of {PROFILES}, got "
+                             f"{profile!r}")
         if n <= 32768:
             base = dict(group_size=2048, subgroups=64)
         elif n <= 262144:
@@ -335,6 +362,8 @@ class BHConfig:
         if profile == "adaptive":
             base.update(ADAPTIVE_OVERRIDES if n >= ADAPTIVE_CUT_MIN_N
                         else ADAPTIVE_MIDN_OVERRIDES)
+        if profile == "domain":
+            base.update(DOMAIN_OVERRIDES)
         if profile == "accurate" and n > 32768:
             base.update(window_pad=2048, block_dual=True)
         # overrides apply before chunk_groups is fitted to the final group
@@ -690,7 +719,7 @@ def _rmin2(com, gc, gh):
 
 def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
                    window: int, gpos, gmass, gidx, sliding: bool = False,
-                   local_bounds=None):
+                   local_bounds=None, grid=None):
     """The collect walk for all G groups at once
     (``nbody_tpu/ops/traversal.py:1124-1526``).
 
@@ -717,7 +746,12 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     their ranges the same way (``traversal.py:1413-1451``): those outside
     the slab go to the refined-far list under ``refine_far_cell_cap`` /
     ``refine_far_particle_cap``, returned as ``rfar`` [G, RFC, 2] /
-    ``rfar_valid`` with the counter ``refine_far_totals`` [G]."""
+    ``rfar_valid`` with the counter ``refine_far_totals`` [G].
+
+    With ``cfg.accept_offset`` the dense levels take Barnes' modified
+    accept test (``BHConfig``), the cell centres from ``grid``, the tree's
+    grid ``Bounds`` (``ops/tree.py`` ``grid_bounds``); the refined levels,
+    whose rows carry no cell address, keep the plain test."""
     G, B, _ = gpos.shape
     L = cfg.max_level
     W = window
@@ -783,8 +817,14 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
 
         covered = _cover(delta, pending, occupied, cs, ce, wstart, wend, W)
 
-        accept = occupied & ~covered & (cell_w2[l]
-                                        < thr * _rmin2(com, gc, gh))
+        rmin2 = _rmin2(com, gc, gh)
+        if cfg.accept_offset:
+            d = com[..., :cfg.dim] - morton.cell_centers_from_codes(
+                ids, grid, l, cfg.dim)
+            off = torch.sqrt((d * d).sum(-1))
+            reach = torch.clamp(torch.sqrt(rmin2) - off, min=0.0)
+            rmin2 = reach * reach
+        accept = occupied & ~covered & (cell_w2[l] < thr * rmin2)
         expand = occupied & ~covered & ~accept
 
         if l < L:
@@ -1418,7 +1458,9 @@ def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int,
             "to build_octree)")
     walk = _group_collect(tree, pmass8.shape[0], cfg.cell_w2s(bounds.width),
                           theta2, cfg, W, tgt8[..., :3], tgt8[..., 3], gidx,
-                          sliding=_sliding_ok(cfg, W))
+                          sliding=_sliding_ok(cfg, W),
+                          grid=(grid_bounds(bounds, cfg.max_level)
+                                if cfg.accept_offset else None))
     return eps2, pmass8, tgt8, gidx, W, walk
 
 

@@ -9,7 +9,8 @@ kernel or runs its plain twin on the CPU, and K3's wrapper also through
 only while a count is open or (``tally``) the span recorder is on
 (``utils/profiling.py`` ``SPANS``): a few small kernels a call, and no host
 read.  An open count reads its sums back once, when it closes; ``TALLY``
-keeps them on the device.
+keeps them on the device.  Beside it, ``SENT`` counts the bytes the
+sharded path's collectives send (``sent``), on the host.
 """
 
 from __future__ import annotations
@@ -48,6 +49,13 @@ _local = threading.local()
 #: "bytes": their bytes, "calls": their number}`` (the benchmark copies it
 #: at both ends of its traced slice)
 TALLY = {}
+
+#: while the span recorder is on, the bytes each kind of collective of
+#: ``parallel/collectives.py`` sent from this rank (``all_gather``,
+#: ``psum``, ``psum_scatter``, ``ring_shift``): ``{"bytes": int, "calls":
+#: int}``, host integers known from the shapes (nothing is read back from
+#: the card; the benchmark copies it at both ends of its traced slice)
+SENT = {}
 
 
 class WorkCount:
@@ -104,9 +112,22 @@ def tally(name: str, needs, *args):
                         "calls": t["calls"] + 1})
 
 
+def sent(kind: str, nbytes: int):
+    """With the span recorder on, add one ``kind`` call that sent
+    ``nbytes`` from this rank to ``SENT``; a flag test when it is off."""
+    if not profiling.SPANS.on:
+        return
+    with LOCK:
+        t = SENT.setdefault(kind, {"bytes": 0, "calls": 0})
+        t["bytes"] += int(nbytes)
+        t["calls"] += 1
+
+
 def reset_tally():
+    """Empty ``TALLY`` and ``SENT``."""
     with LOCK:
         TALLY.clear()
+        SENT.clear()
 
 
 def plain(fn, *args, **kwargs):

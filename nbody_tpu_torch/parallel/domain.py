@@ -437,7 +437,14 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
         raise ValueError(
             f"window_pad ({cfg.window_pad}) exceeds the per-chip shard "
             f"({n_loc}); lower window_pad/group_size or use fewer devices")
-    window = min(cfg.window, n_loc)
+    if cfg.window > n_loc:
+        # a window capped to the shard keeps its group in the middle: the
+        # pad shrinks to what the shard leaves.  The JAX package caps the
+        # width and keeps the pad, so a window of n_loc rows starting
+        # window_pad before its group can miss the group itself, whose
+        # cells then overflow the walk's frontier (a port divergence)
+        cfg = dataclasses.replace(cfg, window_pad=(n_loc - B) // 2)
+    window = cfg.window
     halo = window
     my_start = mesh.rank * n_loc
     dtype, dev = pos_loc.dtype, pos_loc.device
@@ -466,7 +473,9 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
     local_lo, local_hi = my_start - halo, my_start + n_loc + halo
     walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
                           cfg, window, tgt8[..., :3], tgt8[..., 3], gidx,
-                          local_bounds=(local_lo, local_hi))
+                          local_bounds=(local_lo, local_hi),
+                          grid=(grid_bounds(bounds, cfg.max_level)
+                                if cfg.accept_offset else None))
     mark("walk")
     acc_fb = _fb_eval(tgt8[..., :3], gidx, tgt8[..., 3], walk["fb"], g, eps2,
                       _fb_all_quad(tree, cfg), cfg.branch, tcell,

@@ -39,6 +39,8 @@ from nbody_tpu_torch.engines.brute_force import _accumulate, _pairwise_s
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.ops.traversal import (
     DENSE_OVERRIDES,
+    DOMAIN_MIN_N,
+    DOMAIN_OVERRIDES,
     BHConfig,
     fit_chunks,
     resolve_adaptive_overrides,
@@ -75,6 +77,17 @@ def _local_rows_vs_sources(pos_rows, row_ids, pos_src, mass_src, src_ids,
 def _ids(owner: int, n: int, device):
     """The global ids of rank ``owner``'s shard of ``n`` rows."""
     return owner * n + torch.arange(n, device=device)
+
+
+def bh_profile(strategy: str, n_dev: int, n: int) -> str:
+    """The ``BHConfig.auto_for`` profile a ``bh`` engine takes on ``n_dev``
+    ranks holding ``n`` rows when the caller names none: 'domain' on the
+    domain route (every strategy but 'bh-replicated') over several ranks
+    from ``DOMAIN_MIN_N`` rows, where the wide rows begin and the JAX
+    package's tiers leave ``bh``'s envelope on the disc (a port
+    divergence); 'fast' otherwise."""
+    domain = strategy != "bh-replicated" and n_dev > 1 and n >= DOMAIN_MIN_N
+    return "domain" if domain else "fast"
 
 
 def make_sharded_force(mesh, strategy: str = "allgather", tile: int = 1024,
@@ -217,7 +230,9 @@ class ShardedSimulation:
 
     ``n_devices`` must be the group's world size (None: whatever it is);
     with no group initialized, 1 or None makes a one-rank group.
-    ``device="cuda"`` puts each rank's shard on ``cuda:{local rank}``."""
+    ``device="cuda"`` puts each rank's shard on ``cuda:{local rank}``.
+    ``engine_options`` holds ``BHConfig``'s fields and ``profile``; the
+    domain route's default profile is ``bh_profile``'s."""
 
     def __init__(self, pos, vel, mass, *, engine: str = "brute",
                  integrator: str = "leapfrog",
@@ -236,7 +251,8 @@ class ShardedSimulation:
                 "(full rebuild each step) on the mesh")
         if engine in ("bh", "bh-deep"):
             opts = dict(engine_options or {})
-            profile = opts.pop("profile", "fast")
+            profile = opts.pop("profile", None) or bh_profile(
+                strategy, n_dev, max(len(mass), capacity or 0))
             adaptive = bool(profile == "adaptive"
                             or opts.get("refine_levels"))
             if (profile == "adaptive"
@@ -256,8 +272,10 @@ class ShardedSimulation:
             else:
                 if profile == "accurate":
                     opts.setdefault("window_pad", 2048)
-                elif profile == "dense":
-                    for k, v in DENSE_OVERRIDES.items():
+                elif profile in ("dense", "domain"):
+                    stack = (DENSE_OVERRIDES if profile == "dense"
+                             else DOMAIN_OVERRIDES)
+                    for k, v in stack.items():
                         opts.setdefault(k, v)
                 bh_config = BHConfig(**opts)
             if strategy not in ("bh", "bh-replicated"):

@@ -10,6 +10,10 @@
                           nested spans are its children, per thread;
   * ``mark(name)``        closes the phase ``name`` of the innermost open
                           span: from its opening, or its last mark, to now;
+  * ``within(name)``      a span inside the innermost open span that its
+                          phases pass over: timed from an event of its own,
+                          and the phase that a later ``mark`` closes holds
+                          it (``parallel/collectives.py``'s "collective");
   * ``span_medians``      the median time a record of each span name;
   * ``trace(dir)``        ``torch.profiler`` around a region, with the
                           recorder on: host activity, the card's kernels
@@ -76,12 +80,14 @@ class _Open:
 
 class _Frame:
     """An open span on its thread's stack, with the boundary its next mark
-    starts from (its opening, last mark or last child's close)."""
+    starts from (its opening, last mark or last child's close; a
+    ``within`` child's close leaves it)."""
 
-    __slots__ = ("rec", "index", "t", "ev", "rf")
+    __slots__ = ("rec", "index", "t", "ev", "rf", "within")
 
-    def __init__(self, rec, index, t, ev, rf):
+    def __init__(self, rec, index, t, ev, rf, within=False):
         self.rec, self.index, self.t, self.ev, self.rf = rec, index, t, ev, rf
+        self.within = within
 
 
 class SpanRecorder:
@@ -96,7 +102,8 @@ class SpanRecorder:
 
     On the card a span opens at its record's last event (what was enqueued
     since belongs to it), so the children of a span that runs nothing
-    between them sum to it; each close and mark records one event."""
+    between them sum to it; each close and mark records one event.  A
+    ``within`` span records one more event, at its opening."""
 
     def __init__(self):
         self.on = False
@@ -139,7 +146,7 @@ class SpanRecorder:
         rec.evs.append(ev)
         return len(rec.evs) - 1
 
-    def _open(self, name: str, device):
+    def _open(self, name: str, device, within: bool = False):
         frames = self._frames()
         if frames:
             if frames[-1] is None:  # inside a root left out
@@ -147,7 +154,11 @@ class SpanRecorder:
                 return
             t = time.time_ns()
             rec, parent = frames[-1].rec, frames[-1].index
-            ev = len(rec.evs) - 1
+            ev = (self._event(rec) if within and rec.stream is not None
+                  else len(rec.evs) - 1)
+        elif within:  # outside every span: not recorded
+            frames.append(None)
+            return
         else:
             self._roots += 1
             if self._roots % self.every:
@@ -165,7 +176,7 @@ class SpanRecorder:
         if torch.autograd._profiler_enabled():
             rf = torch.profiler.record_function(name)
             rf.__enter__()
-        frames.append(_Frame(rec, len(rec.spans) - 1, t, ev, rf))
+        frames.append(_Frame(rec, len(rec.spans) - 1, t, ev, rf, within))
 
     def _close(self):
         frames = self._frames()
@@ -180,7 +191,8 @@ class SpanRecorder:
         rec.spans[fr.index][3] = t
         rec.ix[fr.index][1] = ev
         if frames:
-            frames[-1].t, frames[-1].ev = t, ev
+            if not fr.within:
+                frames[-1].t, frames[-1].ev = t, ev
         else:
             self._finish(rec)
 
@@ -242,13 +254,13 @@ mark = SPANS.mark
 
 
 class _Span:
-    __slots__ = ("name", "device")
+    __slots__ = ("name", "device", "within")
 
-    def __init__(self, name, device):
-        self.name, self.device = name, device
+    def __init__(self, name, device, within=False):
+        self.name, self.device, self.within = name, device, within
 
     def __enter__(self):
-        SPANS._open(self.name, self.device)
+        SPANS._open(self.name, self.device, self.within)
         return self
 
     def __exit__(self, *exc):
@@ -262,6 +274,18 @@ def annotate(name: str, device=None):
     if not SPANS.on:
         return _OFF
     return _Span(name, device)
+
+
+def within(name: str):
+    """A span named ``name`` inside this thread's innermost open span,
+    which its phases pass over: on the card it is timed from an event
+    recorded at its opening (not from the span's last boundary), and its
+    close leaves the boundary of the span's next ``mark``, so that the
+    phase the mark closes holds it.  Outside every span, and with the
+    recorder off, a context that does nothing."""
+    if not SPANS.on:
+        return _OFF
+    return _Span(name, None, within=True)
 
 
 def span_medians(records, root: str = "step") -> dict:

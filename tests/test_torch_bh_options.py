@@ -22,6 +22,7 @@ from nbody_tpu_torch.core.state import Bounds
 from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
 from test_torch_traversal import BASE, CASES, _inputs
+from torch_parity import jax_fields
 
 STATS = ("accept_dropped", "frontier_fallback", "near_fallback", "fb_spill")
 BUDGETS = CASES["budgets"]  # fallback rows and spills on every path
@@ -195,5 +196,5 @@ def test_kernel_mode_glue_takes_the_options(monkeypatch):
 def test_options_keep_the_config_jax_builds():
     for over in (dict(quad_leaf=True, fb_quad=True), dict(delta_onepass=True),
                  dict(sliding_window=True), dict(dim=2)):
-        assert dataclasses.asdict(tt.BHConfig(**over)) == dataclasses.asdict(
+        assert jax_fields(tt.BHConfig(**over)) == dataclasses.asdict(
             jt.BHConfig(**over))

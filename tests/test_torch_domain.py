@@ -25,8 +25,14 @@ from nbody_tpu.parallel import domain as jdomain
 from nbody_tpu.parallel.mesh import PARTICLE_AXIS, make_mesh
 from nbody_tpu.scenes import self_gravitating_disc
 from nbody_tpu_torch.ops import tree as ttree
-from nbody_tpu_torch.ops.traversal import BHConfig
+from nbody_tpu_torch.ops.traversal import (
+    DOMAIN_MIN_N,
+    DOMAIN_OVERRIDES,
+    BHConfig,
+    bh_accel,
+)
 from nbody_tpu_torch.parallel import ShardedSimulation
+from nbody_tpu_torch.parallel.sharded import bh_profile
 from nbody_tpu_torch.parallel.domain import domain_accel
 
 AXIS = PARTICLE_AXIS
@@ -72,6 +78,10 @@ TREES = {"alive": dict(n=1000, capacity=1024, seed=2, level=4, halo=64),
                       kill=(5, 105))}
 REFINED_TREE = dict(n=1000, capacity=1024, seed=2, level=4, halo=64,
                     refine_levels=2, refine_cap=64, refine_threshold=16)
+# the 4095 + star disc at ShardedSimulation's own preset, narrow and with
+# the wide rows forced on: its 8192 padded rows give each rank one group of
+# 2048 and a window capped to the shard
+DISC_ROWS = {"narrow": None, "wide": 1}
 ACCELS = {"alive": dict(cfg=SMALL, n=500, capacity=2048, seed=0),
           "dead": dict(cfg=SMALL, n=400, capacity=2048, seed=3,
                        kill=(5, 105)),
@@ -90,6 +100,9 @@ def ranks(tmp_path_factory):
     for k, kw in WIDE_RUNS.items():
         cases += [(f"narrow_{k}", "domain_accel", kw),
                   (f"wide_{k}", "domain_accel", dict(kw, wide_n=1))]
+    cases += [(f"disc_{k}", "disc_force", dict(wide_n=w))
+              for k, w in DISC_ROWS.items()]
+    cases.append(("spans", "domain_spans", {}))
     return workers.spawn(WORLD, tmp_path_factory.mktemp("domain"), cases)
 
 
@@ -444,3 +457,156 @@ def test_window_pad_beyond_the_shard_raises():
                      sim.settings.bounds, 1.0, 1.0, 0.02,
                      BHConfig(**dict(SMALL, window_pad=256)), sim.mesh)
     assert torch.isfinite(sim.state.pos).all()
+
+
+def _exact_f64(pos, mass, eps, block: int = 1024):
+    """The softened sum at every row over every row, in float64 plain
+    torch, ``block`` targets a pass: [N, 3] (a row adds nothing to itself,
+    d = 0)."""
+    pos = torch.as_tensor(pos, dtype=torch.float64)
+    mass = torch.as_tensor(mass, dtype=torch.float64)
+    out = []
+    for i in range(0, pos.shape[0], block):
+        d = pos[None, :, :] - pos[i:i + block, None, :]
+        w = mass[None, :] * ((d * d).sum(-1) + eps * eps) ** -1.5
+        out.append((w[..., None] * d).sum(1))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("case", list(DISC_ROWS))
+def test_domain_force_on_the_disc_keeps_the_envelope(ranks, case):
+    """ShardedSimulation(strategy="bh") on the 4095 + star disc at its own
+    preset on 4 ranks, float32, narrow and with the wide rows forced on:
+    every alive row's force against the exact float64 sum reads within
+    bh's stated envelope, p99 under 5e-2 and p50 under 2e-3 of
+    |a - a_exact| / max(|a_exact|, median).  The shard (2048 rows, one
+    group) is shorter than the preset's window (2048 + 2 x 2048), which a
+    window that kept the preset's pad left without its own group (p99
+    ~1.15 before the port centred it)."""
+    got = [r[f"disc_{case}"] for r in ranks]
+    pos = np.concatenate([r["pos"] for r in got]).astype(np.float64)
+    mass = np.concatenate([r["mass"] for r in got]).astype(np.float64)
+    acc = np.concatenate([r["acc"] for r in got]).astype(np.float64)
+    alive = mass > 0
+    assert alive.sum() == 4096
+    ref = _exact_f64(pos[alive], mass[alive],
+                     workers.COMMON["g_soft"]).numpy()
+    rn = np.linalg.norm(ref, axis=1)
+    e = (np.linalg.norm(acc[alive] - ref, axis=1)
+         / np.maximum(rn, np.median(rn)))
+    assert np.quantile(e, 0.99) < 5e-2
+    assert np.quantile(e, 0.5) < 2e-3
+
+
+def test_domain_step_records_collectives_and_their_bytes(ranks):
+    """A domain step at world size 4 with the span recorder on: under the
+    force span the route's phases in order (build, walk, fb, assembly+dual,
+    K3, K4 dual, K4, route, as traverse_tree marks them) and one
+    "collective" span a torch.distributed call, each inside the force span
+    and in the phase that holds it; the byte counter ops/work.py SENT is,
+    kind by kind, what the calls were given (the ring algorithm's bytes).
+    With the recorder off the same step recorded nothing."""
+    for k, r in enumerate(ranks):
+        out = r["spans"]
+        assert out["off"] == (0, {})
+        assert out["sent"] == out["calls"]
+        assert set(out["sent"]) == {"all_gather", "psum", "psum_scatter",
+                                    "ring_shift"}
+        rec, = out["records"]
+        spans = rec["spans"]
+        force = next(i for i, s in enumerate(spans) if s[0] == "force")
+        under = [s for s in spans if s[1] == force]
+        phases = [s[0] for s in under if s[5]]
+        assert phases == ["build", "walk", "fb", "assembly+dual", "K3",
+                          "K4 dual", "K4", "route"]
+        coll = [s for s in under if s[0] == "collective"]
+        assert not any(s[5] for s in coll)
+        assert len(coll) == sum(c["calls"] for c in out["calls"].values())
+        f0, f1 = spans[force][2], spans[force][3]
+        marks = [s for s in under if s[5]]
+        for s in coll:
+            assert f0 <= s[2] <= s[3] <= f1
+            # the phase that holds it: marks tile the force span
+            assert any(m[2] <= s[2] and s[3] <= m[3] for m in marks)
+        held = {m[0] for m in marks
+                if any(m[2] <= s[2] and s[3] <= m[3] for s in coll)}
+        assert {"build", "assembly+dual", "route"} <= held
+
+
+def test_accept_offset_opens_the_cells_the_star_drags():
+    """``BHConfig.accept_offset`` (Barnes' modified accept test, a
+    divergence from the JAX package) on the domain route at world size 1
+    and on the single-card walk (``bh_accel``, the replicated route's),
+    float64, the 8191 + star disc on a small level-5 stack: the star pulls
+    the COM of its cells to their corner, and the plain test accepts those
+    cells beside disc rows they reach (largest row 0.082 of the exact
+    sum); with the COM's offset from the cell's centre taken off the
+    distance they are opened (largest row under 1e-2, p99 under 3e-3) on
+    both routes."""
+    pos, vel, mass = self_gravitating_disc(8191, seed=5)
+    opts = dict(max_level=5, group_size=128, subgroups=8, window_pad=32,
+                near_particle_cap=4096, near_cell_cap=1024, start_level=1,
+                chunk_groups=1, frontier_cap=4096, accept_cap=4096,
+                fb_cap=512)
+    kw = dict(engine="bh", n_devices=1, device="cpu", dtype=torch.float64,
+              **workers.COMMON)
+    worst = {}
+    for offset in (False, True):
+        sim = ShardedSimulation(pos, vel, mass, strategy="bh",
+                                engine_options=dict(opts,
+                                                    accept_offset=offset),
+                                **kw)
+        cfg = sim._bh_config
+        assert cfg.accept_offset is offset
+        st, p = sim.state, sim.settings
+        m = st.effective_mass()
+        alive = (m > 0).numpy()
+        ref = _exact_f64(st.pos.numpy()[alive], m.numpy()[alive],
+                         workers.COMMON["g_soft"]).numpy()
+        rn = np.linalg.norm(ref, axis=1)
+        acc, _ = domain_accel(st.pos, m, p.bounds, p.theta2, p.g, p.g_soft,
+                              cfg, sim.mesh)
+        single, _ = bh_accel(st.pos, m, p.bounds, p.theta2, p.g, p.g_soft,
+                             cfg)
+        for route, a in (("domain", acc), ("single", single)):
+            e = (np.linalg.norm(a.numpy()[alive] - ref, axis=1)
+                 / np.maximum(rn, np.median(rn)))
+            worst[route, offset] = (np.quantile(e, 0.99), e.max())
+    for route in ("domain", "single"):
+        assert worst[route, False][1] > 5e-2
+        assert worst[route, True][1] < 1e-2 and worst[route, True][0] < 3e-3
+
+
+def test_the_domain_profile_is_the_wide_domain_routes_default():
+    """Profile 'domain' (``DOMAIN_OVERRIDES``, the port's tier for the
+    domain route's wide rows) is what ``ShardedSimulation``'s domain route
+    takes by default from 2^24 rows on more than one rank, and what a
+    caller names; the replicated route, one rank and fewer rows keep
+    'fast', the JAX package's tiers."""
+    n = DOMAIN_MIN_N
+    assert bh_profile("bh", 4, n) == "domain"
+    assert bh_profile("allgather", 2, 2 * n) == "domain"
+    assert bh_profile("bh", 4, n - 1) == "fast"
+    assert bh_profile("bh", 1, 2 * n) == "fast"
+    assert bh_profile("bh-replicated", 4, 2 * n) == "fast"
+    cfg = BHConfig.auto_for(1 << 23, profile="domain")
+    assert cfg == BHConfig.auto_for(1 << 23, **DOMAIN_OVERRIDES)
+    assert (cfg.max_level, cfg.window_pad, cfg.frontier_cap, cfg.accept_cap,
+            cfg.fb_cap, cfg.near_particle_cap, cfg.far_particle_cap,
+            cfg.accept_offset, cfg.group_size, cfg.chunk_groups) == (
+        8, 16384, 16384, 8192, 512, 65536, 16384, True, 8192, 8)
+    assert not BHConfig.auto_for(1 << 23).accept_offset
+    with pytest.raises(ValueError, match="profile must be one of"):
+        BHConfig.auto_for(1 << 23, profile="wide")
+    # a caller that sizes the groups gets the stack under its fields
+    pos, vel, mass = self_gravitating_disc(8191, seed=5)
+    sim = ShardedSimulation(pos, vel, mass, engine="bh", strategy="bh",
+                            n_devices=1, device="cpu",
+                            engine_options=dict(
+                                profile="domain", group_size=128,
+                                subgroups=8, window_pad=32, chunk_groups=1,
+                                max_level=5),
+                            **workers.COMMON)
+    cfg = sim._bh_config
+    assert cfg.accept_offset and cfg.near_particle_cap == 65536
+    assert cfg.window_pad == 32 and cfg.max_level == 5

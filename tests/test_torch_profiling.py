@@ -378,3 +378,71 @@ def test_flops_of_is_thread_local():
     assert busy["flops"] == 18 * 128 * 128 + 2 * 4 ** 3
     assert res["idle"] == {"flops": 0, "bytes_accessed": 0,
                            "kernel_flops": {}}
+
+
+def test_a_within_span_leaves_the_marks(spans):
+    """``within``: a span of the innermost open span (never marked) whose
+    close leaves that span's mark boundary, so the phase the next mark
+    closes holds it; outside every span it records nothing and counts no
+    root."""
+    with profiling.within("collective"):
+        torch.ones(4).sum()
+    assert spans.resolve() == [] and spans._frames() == []
+    spans.enable(every=2)
+    for _ in range(2):
+        with profiling.annotate("step"):
+            profiling.mark("a")
+            torch.ones(8).sum()
+            with profiling.within("collective"):
+                time.sleep(1e-3)
+            profiling.mark("b")
+    rec, = spans.resolve()
+    (_, _, s0, s1, _, _), a, c, b = rec["spans"]
+    assert [x[0] for x in (a, c, b)] == ["a", "collective", "b"]
+    assert [x[1] for x in (a, c, b)] == [0, 0, 0]
+    assert [x[5] for x in (a, c, b)] == [True, False, True]
+    # "b" runs from "a"'s close to its mark and holds the collective
+    assert b[2] == a[3] <= c[2] <= c[3] <= b[3] <= s1
+    assert c[4] >= 1.0  # ms, the host's time off the card
+
+
+def test_collectives_at_world_size_one_record_nothing(spans):
+    """At world size 1 the collectives are the identity: a domain step with
+    the recorder on records no ``collective`` span and sends no byte, and
+    the step's phases are the route's."""
+    from nbody_tpu_torch.parallel import ShardedSimulation
+
+    work.reset_tally()
+    try:
+        sim = ShardedSimulation(
+            *self_gravitating_disc(499, seed=0), engine="bh", strategy="bh",
+            n_devices=1, device="cpu", dt=1e-3, g_soft=0.02, theta2=1.0,
+            engine_options=dict(max_level=4, group_size=128, subgroups=8,
+                                window_pad=64, chunk_groups=1))
+        assert sim.mesh.world == 1
+        sim.run(1)
+        rec, = spans.resolve()
+        names = [s[0] for s in rec["spans"]]
+        assert "collective" not in names
+        assert {"build", "walk", "fb", "assembly+dual", "K3", "K4",
+                "route"} <= set(names)
+        assert work.SENT == {}
+    finally:
+        work.reset_tally()
+
+
+def test_the_byte_counter_counts_only_while_the_recorder_is_on():
+    work.reset_tally()
+    try:
+        work.sent("psum", 64)
+        assert work.SENT == {}
+        profiling.SPANS.enable()
+        work.sent("psum", 64)
+        work.sent("psum", 32)
+        work.sent("ring_shift", 8)
+        assert work.SENT == {"psum": {"bytes": 96, "calls": 2},
+                             "ring_shift": {"bytes": 8, "calls": 1}}
+    finally:
+        profiling.SPANS.disable()
+        work.reset_tally()
+        profiling.SPANS.clear()

@@ -20,7 +20,7 @@ from nbody_tpu.ops import tree as jtree
 from nbody_tpu_torch.core.state import Bounds
 from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
-from torch_parity import one_intra_op_thread, rel_err  # noqa: F401
+from torch_parity import jax_fields, one_intra_op_thread, rel_err  # noqa: F401
 
 STATS = ("accept_dropped", "frontier_fallback", "near_fallback", "fb_spill",
          "refine_build_dropped")
@@ -327,7 +327,7 @@ def test_adaptive_presets_match_jax():
                  "ADAPTIVE_CUT_MIN_N", "DEEP_FRAC", "STEEP_CONTRAST"):
         assert getattr(tt, name) == getattr(jt, name), name
     for n in (4096, 131072, 262144, 262145, 1 << 20, 3 << 20):
-        assert dataclasses.asdict(tt.BHConfig.auto_for(
+        assert jax_fields(tt.BHConfig.auto_for(
             n, profile="adaptive")) == dataclasses.asdict(
                 jt.BHConfig.auto_for(n, profile="adaptive")), n
 

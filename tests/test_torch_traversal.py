@@ -16,7 +16,7 @@ from nbody_tpu.ops import traversal as jt
 from nbody_tpu_torch.core.state import Bounds, SimParams
 from nbody_tpu_torch.engines.brute_force import force_dense
 from nbody_tpu_torch.ops import traversal as tt
-from torch_parity import disc, rel_err
+from torch_parity import disc, jax_fields, rel_err
 
 STATS = ("accept_dropped", "frontier_fallback", "near_fallback", "fb_spill")
 
@@ -46,7 +46,7 @@ CASES = {
 @pytest.mark.parametrize("profile", ["fast", "accurate", "dense"])
 def test_auto_for_matches_jax(n, profile):
     ref = dataclasses.asdict(jt.BHConfig.auto_for(n, profile=profile))
-    got = dataclasses.asdict(tt.BHConfig.auto_for(n, profile=profile))
+    got = jax_fields(tt.BHConfig.auto_for(n, profile=profile))
     assert got == ref
 
 
@@ -201,7 +201,7 @@ def test_unported_fields_raise(field, value, item):
         kw["quad_leaf"] = True
     cfg = tt.BHConfig(**kw)
     assert getattr(cfg, field) == value
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jt.BHConfig(**kw))
+    assert jax_fields(cfg) == dataclasses.asdict(jt.BHConfig(**kw))
     if field == "refine_levels":
         with pytest.raises(ValueError, match="3D Morton depth limit"):
             tt.BHConfig(max_level=9, **kw)
@@ -223,7 +223,7 @@ def test_eval_modes():
         tt.bh_accel(*args, tt.BHConfig(eval_mode="pallas", **BASE))
     with pytest.raises(ValueError, match="eval_mode"):
         tt.BHConfig(eval_mode="mosaic")
-    assert dataclasses.asdict(tt.BHConfig.auto_for(
+    assert jax_fields(tt.BHConfig.auto_for(
         1 << 20, profile="adaptive")) == dataclasses.asdict(
             jt.BHConfig.auto_for(1 << 20, profile="adaptive"))
     a, _ = tt.bh_accel(*args, tt.BHConfig(eval_mode="xla", **BASE))

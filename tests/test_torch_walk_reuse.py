@@ -26,6 +26,7 @@ from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
 from nbody_tpu_torch.scenes import self_gravitating_disc
 from test_walk_reuse import OPTS
+from torch_parity import jax_fields
 
 CFG = tt.BHConfig(**OPTS)
 CFG_MONO = tt.BHConfig(multipole="mono", **OPTS)
@@ -81,7 +82,7 @@ def test_cached_matches_full_when_static(cfg):
                                atol=1e-14)
     assert int(s_cached["dual_tiles"]) == int(s_full["dual_tiles"])
     assert torch.equal(s_cached["near_totals"], s_full["near_totals"])
-    jcfg = jt.BHConfig(**dict(dataclasses.asdict(cfg), eval_mode="xla"))
+    jcfg = jt.BHConfig(**dict(jax_fields(cfg), eval_mode="xla"))
     js = JaxState.create(*self_gravitating_disc(800, seed=1),
                          dtype=jnp.float64)
     jp = JaxParams.create(g_soft=0.02, theta2=0.5, dtype=jnp.float64)

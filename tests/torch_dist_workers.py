@@ -227,6 +227,88 @@ def domain_accel(cfg, n=500, capacity=2048, seed=0, kill=None,
             **{k: v.numpy() for k, v in stats.items()}}
 
 
+def disc_force(n=4095, wide_n=None, seed=0):
+    """The float32 disc of ``n`` + star on ``ShardedSimulation(strategy=
+    "bh")`` at its own preset: this rank's shard (positions and effective
+    masses) and its domain force on the initial state, with ops/tree.py's
+    WIDE_N lowered to ``wide_n`` (the wide row format at a small N)."""
+    from nbody_tpu_torch.parallel.domain import domain_accel as accel
+
+    with _wide_n(wide_n):
+        sim = _sim(engine="bh", strategy="bh", n=n, capacity=None,
+                   seed=seed, dtype=torch.float32)
+        st, p, cfg = sim.state, sim.settings, sim._bh_config
+        m = st.effective_mass()
+        acc, _stats = accel(st.pos, m, p.bounds, p.theta2, p.g, p.g_soft,
+                            cfg, sim.mesh)
+    return {"pos": st.pos.numpy(), "mass": m.numpy(), "acc": acc.numpy()}
+
+
+def domain_spans(n=1000):
+    """One step of the domain route with the span recorder off, then one
+    with it on, every torch.distributed call of the second counted from
+    the tensors it was given: the records and the byte counter after each,
+    and the bytes the calls sent by kind (the ring algorithm's, from the
+    arguments)."""
+    import torch.distributed as dist
+
+    from nbody_tpu_torch.ops import work
+    from nbody_tpu_torch.utils import profiling
+
+    opts = dict(max_level=4, group_size=128, subgroups=8, window_pad=32,
+                near_particle_cap=512, near_cell_cap=512, start_level=1,
+                chunk_groups=1, block_dual=True)
+    sim = _sim(engine="bh", strategy="bh", n=n, capacity=1024, seed=0,
+               opts=opts)
+    w = dist.get_world_size()
+    calls = {}
+
+    def count(kind, nbytes):
+        c = calls.setdefault(kind, {"bytes": 0, "calls": 0})
+        c["bytes"] += nbytes
+        c["calls"] += 1
+
+    size = lambda t: t.numel() * t.element_size()
+    spies = {
+        "all_gather_into_tensor": lambda out, x, **k: count(
+            "all_gather", size(x) * (w - 1)),
+        "all_reduce": lambda x, **k: count("psum",
+                                           2 * size(x) * (w - 1) // w),
+        "reduce_scatter_tensor": lambda out, x, **k: count(
+            "psum_scatter", size(out) * (w - 1)),
+        "batch_isend_irecv": lambda ops: count("ring_shift", sum(
+            size(o.tensor) for o in ops if o.op is dist.isend)),
+    }
+    originals = {k: getattr(dist, k) for k in spies}
+
+    def spy(name):
+        def call(*a, **k):
+            spies[name](*a, **k)
+            return originals[name](*a, **k)
+        return call
+
+    out = {}
+    profiling.SPANS.clear()
+    work.reset_tally()
+    sim.run(1)
+    out["off"] = (len(profiling.RECORDS), dict(work.SENT))
+    for k in spies:
+        setattr(dist, k, spy(k))
+    profiling.SPANS.enable()
+    try:
+        sim.run(1)
+    finally:
+        profiling.SPANS.disable()
+        for k, f in originals.items():
+            setattr(dist, k, f)
+    out["records"] = profiling.SPANS.resolve()
+    out["sent"] = {k: dict(v) for k, v in work.SENT.items()}
+    out["calls"] = calls
+    profiling.SPANS.clear()
+    work.reset_tally()
+    return out
+
+
 def octree_sharded(n=500, capacity=1024, seed=2, level=4, **refine):
     """The replicated tree of build_octree_sharded (rank 0's copy)."""
     from nbody_tpu_torch.ops.tree import build_octree_sharded

@@ -26,6 +26,22 @@ G, EPS = 1.0, 0.02
 MATMUL_TOL = 1e-3
 
 
+#: the port's ``BHConfig`` fields that the JAX package has not (ROADMAP
+#: "Deliberate divergences"), with the value each takes in every
+#: configuration held to the JAX package's
+PORT_ONLY = {"accept_offset": False}
+
+
+def jax_fields(cfg) -> dict:
+    """The port's ``BHConfig`` (or its ``dataclasses.asdict``) as the JAX
+    package's dict of fields: its own fields taken off, each asserted at
+    its ``PORT_ONLY`` value."""
+    d = dict(cfg) if isinstance(cfg, dict) else dataclasses.asdict(cfg)
+    for k, v in PORT_ONLY.items():
+        assert d.pop(k) == v, k
+    return d
+
+
 def disc(n, capacity, kill=0, g_soft=EPS):
     """The disc at ``capacity`` with particles 1..kill dead (zero effective
     mass, left where they are).  Returns (jax_state, jax_params, pos, mass,
