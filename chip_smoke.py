@@ -5,7 +5,7 @@
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit.  It builds the kernels from ``nbody_tpu_torch/csrc`` at first use
-(one nvcc per source, all at once), then runs twenty-four phases, each
+(one nvcc per source, all at once), then runs twenty-five phases, each
 printing one line and stopping the script with a non-zero exit on failure:
 
   1. device: the card, its power limit, TF32 off for matmul and cuDNN;
@@ -137,7 +137,11 @@ printing one line and stopping the script with a non-zero exit on failure:
      against the exact sums beside its twin at 100096 and 2^20 rows (within
      twice the twin's error, two calls bitwise equal), both timed, and one
      100k ``bh`` step's three tables and launches with the twin and with the
-     kernel.
+     kernel;
+ 25. the collect walk kernel (``walk_phase``): bitwise its twin at 100k and
+     on profile 'domain' with far budgets, both timed at the 100k tier and
+     at 2^23 rows a card beside its bound, and one 100k ``bh`` step's
+     launch, launches and steps/s with the twin and with the kernel.
 
 Every kernel's line in the ``kernels`` JSON carries its least time on the
 card for the work of the timed call (``bound_ms``, from the operation and
@@ -161,6 +165,7 @@ SOURCE = "nbody_tpu_torch/csrc/pairwise.cu"
 SOURCE_BH = "nbody_tpu_torch/csrc/group_force.cu"
 SOURCE_MXU = "nbody_tpu_torch/csrc/pairwise_mxu.cu"
 SOURCE_PS = "nbody_tpu_torch/csrc/prefix_scan.cu"
+SOURCE_CW = "nbody_tpu_torch/csrc/collect_walk.cu"
 G, EPS = 1.0, 0.02  # the main-path settings (the CLI defaults)
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM,
@@ -1806,6 +1811,168 @@ def prefix_phase():
             "bound": bnd}
 
 
+# phase 25: the Barnes-Hut collect walk's dense levels (csrc/collect_walk.cu),
+# a kernel with no Pallas counterpart (the JAX package's walk is jnp), at the
+# 100k tier and at profile 'domain''s 2^23 rows a card
+
+WALK_STEP_N = 100000
+WALK_DOMAIN_N = 1 << 23
+#: FP32 instructions a box test of the walk (|com - c| - h clamped at 0 on
+#: three axes, their squares summed, the minimum), none of them a
+#: multiply-add: at 128 a clock on each of 132 SMs, half the FMA rate
+WALK_BOX_INSTR = 18
+FP32_INSTR_PER_S = FP32_PER_S / 2
+
+
+def walk_tests(args):
+    """(cells the twin's walk tests against the boxes, bytes the kernel
+    must move: a table row a visited cell, the outputs once) for the
+    dense-walk arguments ``args``, read off one twin call."""
+    import torch
+
+    from nbody_tpu_torch.ops import traversal as tt
+
+    seen = []
+    cover = tt._cover
+
+    def spy(delta, pending, occupied, *a):
+        covered = cover(delta, pending, occupied, *a)
+        seen.append(((occupied & ~covered).sum(), occupied.sum()))
+        return covered
+
+    tt._cover = spy
+    try:
+        st = tt._collect_dense(*args)
+    finally:
+        tt._cover = cover
+    tested = int(sum(t for t, _ in seen))
+    visited = int(sum(v for _, v in seen))
+    out = sum(t.numel() * t.element_size() for t in st.values()
+              if isinstance(t, torch.Tensor))
+    return tested, visited * 32 + out
+
+
+def walk_device_ms(args, reps=20):
+    """Device time of one walk kernel launch (ms): ``reps`` launches of
+    the packed arguments enqueued behind a sleeping kernel, so the CUDA
+    events around them time the card alone, not the host's enqueue."""
+    import ctypes
+
+    import torch
+
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import collect_walk as cw
+    from nbody_tpu_torch.ops.pairwise import _stream
+
+    lib = _build.load_library()
+    p, smem, _st, _keep = cw.pack(*args)
+    dbl = int(args[6].dtype == torch.float64)
+    stream = _stream(args[6].device)
+    lib.nbody_group_collect(ctypes.byref(p), dbl, smem, stream)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms: the host enqueues meanwhile
+    a.record()
+    for _ in range(reps):
+        rc = lib.nbody_group_collect(ctypes.byref(p), dbl, smem, stream)
+        require(rc == 0, f"group_collect: CUDA error {rc}")
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def walk_phase():
+    """(a) The collect walk kernel against its plain twin on the card, bit
+    for bit, on tests/torch_walk_cases.py's 100k disc and profile 'domain'
+    (wide rows, accept_offset, local and far budgets) at 2^18 rows.  (b)
+    Kernel and twin with CUDA events at the 100k tier and at profile
+    'domain''s 2^23 rows a card (the domain route at world size 1 with the
+    wide rows forced on), the kernel's device time (``walk_device_ms``)
+    beside its bound (the box tests' FP32 instructions, the bytes).  (c) One 100k ``bh`` step:
+    one kernel launch, and its launches (torch.profiler: runtime API,
+    card) and steps/s with the twin swapped in and with the kernel,
+    alternating."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_walk_cases as wc
+
+    from nbody_tpu_torch import Simulation
+    from nbody_tpu_torch.ops import collect_walk as cw
+    from nbody_tpu_torch.ops import traversal as tt
+    from nbody_tpu_torch.scenes import self_gravitating_disc
+
+    dev = torch.device("cuda", 0)
+    parts = []
+    for name in ("100k", "domain-far"):
+        args = wc.case(name, dev, card=True)
+        bad = wc.mismatches(cw.group_collect(*args), tt._collect_dense(*args),
+                            args[5])
+        torch.cuda.synchronize()
+        require(not bad, f"walk kernel {name}: {bad} differ from the twin")
+        parts.append(f"{name} bitwise the twin")
+
+    times = {}
+    for tier, args in (
+            ("100k", wc.case("100k", dev, card=True)),
+            ("domain 2^23", wc.domain_args(
+                WALK_DOMAIN_N, tt.BHConfig.auto_for(WALK_DOMAIN_N,
+                                                    profile="domain"), dev))):
+        kernel = ms(lambda: cw.group_collect(*args), 20)
+        card = walk_device_ms(args)
+        plain = ms(lambda: tt._collect_dense(*args), 2)
+        tested, nbytes = walk_tests(args)
+        cfg = args[4]
+        bnd = max((tested * cfg.subgroups * WALK_BOX_INSTR
+                   / FP32_INSTR_PER_S * 1e3, "box tests"),
+                  (nbytes / BYTES_PER_S * 1e3, "bytes"))
+        times[tier] = (kernel, plain, bnd, card)
+        parts.append(
+            f"{tier} [{args[6].shape[0]} groups x {cfg.subgroups} boxes, "
+            f"{tested} cells tested]: kernel {kernel:.4f} ms host-paced, "
+            f"{card:.4f} ms on the card, twin {plain:.2f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+        del args
+
+    pos, vel, mass = self_gravitating_disc(WALK_STEP_N, seed=0)
+    sim = Simulation(pos, vel, mass, engine="bh", device="cuda")
+    sim.run(2)
+    cw.reset_launch_counts()
+    sim.run(1)
+    torch.cuda.synchronize()
+    calls = cw.launch_counts()["group_collect"]
+    require(calls == 1, f"a 100k bh step made {calls} walk kernel launches")
+    kernel_launches = launches_in(lambda: sim.run(1))
+    rates = {"twin": [], "kernel": []}
+    real = cw.group_collect
+    try:
+        cw.group_collect = tt._collect_dense
+        sim.run(1)
+        twin_launches = launches_in(lambda: sim.run(1))
+        for name in ("kernel", "twin", "twin", "kernel"):
+            cw.group_collect = real if name == "kernel" else tt._collect_dense
+            sim.run(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(40)
+            torch.cuda.synchronize()
+            rates[name].append(round(40 / (time.perf_counter() - t0), 2))
+    finally:
+        cw.group_collect = real
+    require(kernel_launches[1] < twin_launches[1] - 400,
+            f"a 100k bh step launched {kernel_launches} with the kernel, "
+            f"{twin_launches} with the twin")
+    parts.append(f"one 100k bh step: {calls} walk launch, launches (runtime,"
+                 f" card) {twin_launches} with the twin, {kernel_launches} "
+                 f"with the kernel; steps/s twin {rates['twin']}, kernel "
+                 f"{rates['kernel']}")
+    print("[25 collect walk] " + " | ".join(parts), flush=True)
+    kernel, plain, bnd, _card = times["100k"]
+    return {"launches": calls, "ms": kernel, "plain_ms": plain, "bound": bnd,
+            "times": times}
+
+
 def pick(args, kw, groups):
     """A kernel call restricted to a few groups (all of them for the
     block-dual rows, whose 'groups' are target tiles)."""
@@ -3140,6 +3307,9 @@ def main() -> int:
 
     # -- 24. the build's prefix table kernel --------------------------------
     prefix = prefix_phase()
+
+    # -- 25. the collect walk kernel ----------------------------------------
+    walk = walk_phase()
     smi = nvidia_smi()
 
     # the main paths' launches: phases 9, 19, 20, 21, 22 and 23 (each run
@@ -3203,6 +3373,11 @@ def main() -> int:
               SOURCE_PS, "nbody_tpu/ops/tree.py:235", prefix["launches"],
               prefix["err"], prefix["ms"], prefix["plain_ms"],
               prefix["bound"]),
+        # no Pallas kernel: the JAX package's collect walk is jnp; its
+        # outputs equal the twin's bit for bit (error 0)
+        entry("group_collect (the 100k walk, 25 groups)", SOURCE_CW,
+              "nbody_tpu/ops/traversal.py:1124", walk["launches"], 0.0,
+              walk["ms"], walk["plain_ms"], walk["bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

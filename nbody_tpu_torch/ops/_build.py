@@ -176,6 +176,10 @@ def _load() -> ctypes.CDLL:
     lib.nbody_prefix_table.restype = i
     lib.nbody_prefix_scratch.argtypes = [ll, i]
     lib.nbody_prefix_scratch.restype = ll
+    lib.nbody_group_collect.argtypes = [p, i, i, p]
+    lib.nbody_group_collect.restype = i
+    lib.nbody_collect_params_bytes.argtypes = [i]
+    lib.nbody_collect_params_bytes.restype = i
     lib.nbody_rsqrt_sweep.argtypes = [p, p]
     lib.nbody_rsqrt_sweep.restype = i
     lib.nbody_error_string.argtypes = [i]

@@ -60,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from nbody_tpu_torch.ops import collect_walk
 from nbody_tpu_torch.ops import group_force as gf
 from nbody_tpu_torch.ops import morton
 from nbody_tpu_torch.ops.tree import (
@@ -113,13 +114,16 @@ ADAPTIVE_MIDN_OVERRIDES = dict(
 # accept budgets that the level-8 walk does not overflow, near and far
 # budgets that hold a group's near field on its own rank and across a
 # rank's edge, and Barnes' modified accept test for the star's corner
-# cells.  It holds bh's envelope there at the scene and ~45 steps on, not
-# ~190 steps on, where the cold disc's clumps have grown (ROADMAP queue 3
+# cells.  The near budgets hold the clumps the cold disc grows: at 65536
+# rows and 2048 cells a group the force read p99 0.070 ~56 steps from the
+# scene and 0.107 ~62 steps on, at 131072 and 4096 0.0088 and 0.0073 (the
+# call ~10% slower).  It holds bh's envelope there at the scene and to ~62
+# steps on; ~190 steps on is unread at these budgets (ROADMAP queue 3
 # item 2b).
 DOMAIN_OVERRIDES = dict(max_level=8, window_pad=16384, frontier_cap=16384,
                         accept_cap=8192, fb_cap=512,
-                        near_particle_cap=65536, far_particle_cap=16384,
-                        accept_offset=True)
+                        near_particle_cap=131072, near_cell_cap=4096,
+                        far_particle_cap=16384, accept_offset=True)
 #: ShardedSimulation's domain route takes profile 'domain' by default from
 #: this many rows on more than one card (the wide rows, ops/tree.py WIDE_N)
 DOMAIN_MIN_N = 1 << 24
@@ -717,20 +721,27 @@ def _rmin2(com, gc, gh):
     return torch.cat(out, dim=1)
 
 
-def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
+def _group_collect(tree: LinearOctree, n_total: int, width, theta2, cfg,
                    window: int, gpos, gmass, gidx, sliding: bool = False,
                    local_bounds=None, grid=None):
     """The collect walk for all G groups at once
-    (``nbody_tpu/ops/traversal.py:1124-1526``).
+    (``nbody_tpu/ops/traversal.py:1124-1526``): the frame and the dense
+    levels through the kernel ``csrc/collect_walk.cu`` for CUDA tensors
+    (``ops/collect_walk.py``, one launch; it raises where it cannot run,
+    there is no fallback) and through its plain twin ``_collect_dense`` for
+    CPU tensors, then the refined levels (``_collect_refined``, plain
+    torch on either device) and ``_collect_finish``.
 
-    gpos [G, B, 3], gmass [G, B], gidx [G, B] (sorted indices, int32) ->
-    dict with the multipole slab ``mono`` [G, accept_cap, 8] (com, M, -1,
-    level or -1 for fb spill and refined cells, cell id, level), the near
-    cells ``near_ids`` / ``near_valid`` [G, near_cell_cap], the window
-    coverage ``wmask`` [G, W] and start ``wstart`` [G], the group frame
-    ``center`` [G, 3], the fallback slab ``fb`` [G, fb_cap, 8] and the four
-    walk counters [G].  With ``cfg.refine_levels`` also the refined-near
-    ranges ``rnear`` [G, RC, 2] / ``rnear_valid`` [G, RC] and the counter
+    ``width`` is the tree box's width (0-d), whose squares over 2^level are
+    the cell widths the accept test compares.  gpos [G, B, 3], gmass [G,
+    B], gidx [G, B] (sorted indices, int32) -> dict with the multipole slab
+    ``mono`` [G, accept_cap, 8] (com, M, -1, level or -1 for fb spill and
+    refined cells, cell id, level), the near cells ``near_ids`` /
+    ``near_valid`` [G, near_cell_cap], the window coverage ``wmask`` [G, W]
+    and start ``wstart`` [G], the group frame ``center`` [G, 3], the
+    fallback slab ``fb`` [G, fb_cap, 8] and the four walk counters [G].
+    With ``cfg.refine_levels`` also the refined-near ranges ``rnear`` [G,
+    RC, 2] / ``rnear_valid`` [G, RC] and the counter
     ``refine_near_totals`` [G] (their particles).  ``sliding``
     (``_sliding_ok``) leaves the window starts unclamped, as the
     gather-free window assembly reads them.
@@ -752,18 +763,28 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     accept test (``BHConfig``), the cell centres from ``grid``, the tree's
     grid ``Bounds`` (``ops/tree.py`` ``grid_bounds``); the refined levels,
     whose rows carry no cell address, keep the plain test."""
-    G, B, _ = gpos.shape
-    L = cfg.max_level
-    W = window
-    branch = cfg.branch
-    dtype, dev = gpos.dtype, gpos.device
+    thr = _scalar(cfg.accept_margin, gpos) * _scalar(theta2, gpos)
+    dense = collect_walk.group_collect if gpos.is_cuda else _collect_dense
+    st = dense(tree, n_total, width, thr, cfg, window, gpos, gmass, gidx,
+               sliding, local_bounds, grid)
+    if cfg.refine_levels:
+        st = _collect_refined(tree, st, cfg.cell_w2s(width), thr, cfg,
+                              window, local_bounds)
+    return _collect_finish(st, cfg, window)
 
-    # per-subgroup boxes over alive members (their union covers the group
-    # tightly even where it straddles a Morton seam)
+
+def _walk_frame(gpos, gmass, gidx, cfg, n_total: int, W: int, sliding):
+    """The walk's per-group frame: the subgroup boxes over alive members
+    (centres gc, half-widths gh [G, S, 3]; their union covers the group
+    tightly even where it straddles a Morton seam), the group centre
+    ``_group_center`` [G, 3] and the window starts [G] (clamped into
+    range, or unclamped for the sliding assembly: zero rows past the
+    array's ends)."""
+    G, B, _ = gpos.shape
     S = cfg.subgroups
     has = (gmass > 0).reshape(G, S, B // S)
     spos = gpos.reshape(G, S, B // S, 3)
-    big = torch.finfo(dtype).max
+    big = torch.finfo(gpos.dtype).max
     masked_lo = torch.where(has[..., None], spos, big)
     masked_hi = torch.where(has[..., None], spos, -big)
     lo = masked_lo.amin(dim=2)  # [G, S, 3]
@@ -772,22 +793,47 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     # empty subgroups: a point box parked far outside the domain
     lo = torch.where(any_alive, lo, 1e30)
     hi = torch.where(any_alive, hi, 1e30)
-    gc = 0.5 * (lo + hi)
-    gh = 0.5 * (hi - lo)
-    center = _group_center(gpos, gmass)
-
-    # sorted-index window around each group: clamped into range, or
-    # unclamped (zero rows past the array's ends) for the sliding assembly
     wstart = gidx[:, 0] - cfg.window_pad
     if not sliding:
         wstart = torch.clamp(wstart, 0, max(n_total - W, 0))
+    return (0.5 * (lo + hi), 0.5 * (hi - lo), _group_center(gpos, gmass),
+            wstart)
+
+
+def _sqn(v):
+    """|v|^2 over the last axis (2 or 3 wide), added in axis order."""
+    s = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+    return s + v[..., 2] * v[..., 2] if v.shape[-1] == 3 else s
+
+
+def _collect_dense(tree: LinearOctree, n_total: int, width, thr, cfg,
+                   window: int, gpos, gmass, gidx, sliding: bool = False,
+                   local_bounds=None, grid=None):
+    """The collect walk's frame and dense levels (start_level..max_level)
+    in plain torch on any device: the twin of ``csrc/collect_walk.cu``,
+    which reproduces it bit for bit.  ``thr`` is accept_margin * theta2
+    as a 0-d CPU tensor of the dtype; the rest as ``_group_collect``.
+
+    Returns the walk state: the slabs with their trash rows ``mono`` [G,
+    A + 1, 8] and ``fb`` [G, FB + 1, 8], their fill ``mono_off`` /
+    ``fb_off`` [G], the coverage diff array ``delta`` [G, W + 1], the four
+    counters, ``wstart``, ``center``, the subgroup boxes ``gc`` / ``gh``,
+    the near (and far) cell lists, and with refined levels the descend
+    list ``rids`` / ``rvalid`` [G, refine_frontier]."""
+    G, B, _ = gpos.shape
+    L = cfg.max_level
+    W = window
+    branch = cfg.branch
+    dtype, dev = gpos.dtype, gpos.device
+    cell_w2 = cfg.cell_w2s(width)
+    gc, gh, center, wstart = _walk_frame(gpos, gmass, gidx, cfg, n_total, W,
+                                         sliding)
     wend = wstart + W
 
     sched = cfg.schedule()
     n0 = branch ** cfg.start_level
     ids = torch.arange(n0, dtype=torch.int32, device=dev).expand(G, n0)
     valid = torch.ones((G, n0), dtype=torch.bool, device=dev)
-    thr = _scalar(cfg.accept_margin, gpos) * _scalar(theta2, gpos)
 
     A, FB = cfg.accept_cap, cfg.fb_cap
     mono = torch.zeros((G, A + 1, 8), dtype=dtype, device=dev)
@@ -797,7 +843,6 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     fb_off = torch.zeros((G,), **i32)
     a_dropped = torch.zeros((G,), **i32)
     f_fallback = torch.zeros((G,), **i32)
-    n_fallback = torch.zeros((G,), **i32)
     fb_spill = torch.zeros((G,), **i32)
     # window-coverage diff array (+1 at a covered range's start, -1 past its
     # end); slot W is trash
@@ -805,6 +850,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
     pending = [] if cfg.delta_onepass else None
     R = cfg.refine_levels
     rf_parent_cap = cfg.refine_frontier // branch
+    st = {}
 
     for l in range(cfg.start_level, L + 1):
         # one packed-row gather per slot: (m, mx, my, mz, start, end, _, _)
@@ -821,8 +867,8 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         if cfg.accept_offset:
             d = com[..., :cfg.dim] - morton.cell_centers_from_codes(
                 ids, grid, l, cfg.dim)
-            off = torch.sqrt((d * d).sum(-1))
-            reach = torch.clamp(torch.sqrt(rmin2) - off, min=0.0)
+            reach = torch.clamp(torch.sqrt(rmin2) - torch.sqrt(_sqn(d)),
+                                min=0.0)
             rmin2 = reach * reach
         accept = occupied & ~covered & (cell_w2[l] < thr * rmin2)
         expand = occupied & ~covered & ~accept
@@ -868,7 +914,7 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
             overflowed = expand & ~inc_l
             if local_bounds is not None:
                 overflowed = overflowed & ~expand_far
-            n_fallback = overflowed.sum(dim=1, dtype=torch.int32)
+            st["near_fallback"] = overflowed.sum(dim=1, dtype=torch.int32)
             expand = inc_l
 
         # overflow cells -> fallback slab: the raw node rows plus (level,
@@ -896,31 +942,66 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         if l < L:
             ids, valid = _children(ids, expand, parent_cap, branch)
         else:
-            near_ids, near_valid, _ = _compact(ids, expand,
-                                               cfg.near_cell_cap)
+            st["near_ids"], st["near_valid"], _ = _compact(
+                ids, expand, cfg.near_cell_cap)
             if local_bounds is not None:
-                far_ids, far_valid, _ = _compact(ids, expand_far,
-                                                 cfg.far_cell_cap)
+                st["far_ids"], st["far_valid"], _ = _compact(
+                    ids, expand_far, cfg.far_cell_cap)
             if R:
-                rids, rvalid = _children(rbase, descend, rf_parent_cap,
-                                         branch)
+                st["rids"], st["rvalid"] = _children(rbase, descend,
+                                                     rf_parent_cap, branch)
+    if pending:
+        # delta_onepass: every level's coverage updates in one scatter-add
+        _apply_pending(delta, pending)
+    st.update(mono=mono, mono_off=mono_off, fb=fb, fb_off=fb_off,
+              delta=delta, wstart=wstart, center=center, gc=gc, gh=gh,
+              accept_dropped=a_dropped, frontier_fallback=f_fallback,
+              fb_spill=fb_spill)
+    return st
 
-    # refined levels: the same rules over the slot-indexed refined tables.
-    # ``rids`` are rows of refine_tables[r - 1]; children of a row j that
-    # was refined further are rows child_slot[j] * 8 + k.  Accepted cells
-    # and spill ride the multipole slab as level -1 rows (no quadrupole),
-    # unexpandable cells become explicit sorted ranges under per-group
-    # cumulative budgets, and overflow keeps the self-excluded fallback.
+
+def _apply_pending(delta, pending):
+    """The coverage updates ``_cover`` collected (``delta_onepass``) in one
+    scatter-add: the same integers as level by level."""
+    delta.scatter_add_(1, torch.cat([i for i, _ in pending], dim=1),
+                       torch.cat([v for _, v in pending], dim=1))
+
+
+def _collect_refined(tree: LinearOctree, st: dict, cell_w2, thr, cfg,
+                     window: int, local_bounds=None):
+    """The refined levels of the collect walk over the dense levels' state
+    (``_collect_dense`` or the kernel's), in plain torch on any device:
+    the same rules over the slot-indexed refined tables.  ``rids`` are
+    rows of refine_tables[r - 1]; children of a row j that was refined
+    further are rows child_slot[j] * 8 + k.  Accepted cells and spill ride
+    the multipole slab as level -1 rows (no quadrupole), unexpandable
+    cells become explicit sorted ranges under per-group cumulative
+    budgets, and overflow keeps the self-excluded fallback.  Returns the
+    state with the refined lists added."""
+    G = st["mono"].shape[0]
+    L, R, W = cfg.max_level, cfg.refine_levels, window
+    branch = cfg.branch
+    dev = st["mono"].device
+    A, FB = cfg.accept_cap, cfg.fb_cap
+    mono, mono_off, fb, fb_off = (st["mono"], st["mono_off"], st["fb"],
+                                  st["fb_off"])
+    a_dropped, n_fallback, fb_spill = (st["accept_dropped"],
+                                       st["near_fallback"], st["fb_spill"])
+    delta, wstart, gc, gh = st["delta"], st["wstart"], st["gc"], st["gh"]
+    wend = wstart + W
+    rids, rvalid = st["rids"], st["rvalid"]
+    pending = [] if cfg.delta_onepass else None
+    rf_parent_cap = cfg.refine_frontier // branch
+    i32 = dict(dtype=torch.int32, device=dev)
     RC = cfg.refine_near_cell_cap
     # a domain walk splits the refined ranges by gather locality too
     RFC = cfg.refine_far_cell_cap if local_bounds is not None else 0
-    if R:
-        rnear = torch.zeros((G, RC + 1, 2), **i32)  # column RC is trash
-        rn_off = torch.zeros((G,), **i32)
-        rn_pcnt = torch.zeros((G,), **i32)
-        rfar = torch.zeros((G, RFC + 1, 2), **i32)
-        rf_off = torch.zeros((G,), **i32)
-        rf_pcnt = torch.zeros((G,), **i32)
+    rnear = torch.zeros((G, RC + 1, 2), **i32)  # column RC is trash
+    rn_off = torch.zeros((G,), **i32)
+    rn_pcnt = torch.zeros((G,), **i32)
+    rfar = torch.zeros((G, RFC + 1, 2), **i32)
+    rf_off = torch.zeros((G,), **i32)
+    rf_pcnt = torch.zeros((G,), **i32)
     for r in range(1, R + 1):
         row = tree.refine_tables[r - 1][rids.long()]  # [G, F, 8]
         m = torch.where(rvalid, row[..., 0], 0.0)
@@ -974,29 +1055,36 @@ def _group_collect(tree: LinearOctree, n_total: int, cell_w2, theta2, cfg,
         a_dropped = a_dropped + mono_drop.sum(dim=1, dtype=torch.int32)
         if r < R:
             rids, rvalid = _children(rbase, descend, rf_parent_cap, branch)
-
     if pending:
-        # delta_onepass: every level's coverage updates in one scatter-add
-        delta.scatter_add_(1, torch.cat([i for i, _ in pending], dim=1),
-                           torch.cat([v for _, v in pending], dim=1))
-    wmask = torch.cumsum(delta, dim=1)[:, :W] > 0
-    out = dict(mono=mono[:, :A], near_ids=near_ids, near_valid=near_valid,
-               wmask=wmask, wstart=wstart, center=center, fb=fb[:, :FB],
-               accept_dropped=a_dropped, frontier_fallback=f_fallback,
-               near_fallback=n_fallback, fb_spill=fb_spill)
-    if local_bounds is not None:
-        out.update(far_ids=far_ids, far_valid=far_valid)
-    if R:
-        out.update(rnear=rnear[:, :RC],
-                   rnear_valid=(torch.arange(RC, **i32)[None, :]
-                                < rn_off[:, None]),
-                   refine_near_totals=rn_pcnt)
-    if R and RFC:
-        out.update(rfar=rfar[:, :RFC],
-                   rfar_valid=(torch.arange(RFC, **i32)[None, :]
-                               < rf_off[:, None]),
-                   refine_far_totals=rf_pcnt)
-    return out
+        _apply_pending(delta, pending)
+    st = dict(st, mono=mono, mono_off=mono_off, fb=fb, fb_off=fb_off,
+              accept_dropped=a_dropped, near_fallback=n_fallback,
+              fb_spill=fb_spill,
+              rnear=rnear[:, :RC],
+              rnear_valid=torch.arange(RC, **i32)[None, :] < rn_off[:, None],
+              refine_near_totals=rn_pcnt)
+    if RFC:
+        st.update(rfar=rfar[:, :RFC],
+                  rfar_valid=(torch.arange(RFC, **i32)[None, :]
+                              < rf_off[:, None]),
+                  refine_far_totals=rf_pcnt)
+    return st
+
+
+def _collect_finish(st: dict, cfg, window: int):
+    """The walk's result from its state: the slabs without their trash
+    rows, the window coverage mask (the diff array's prefix > 0, unless
+    the kernel computed it), the lists and the counters."""
+    wmask = st.get("wmask")
+    if wmask is None:
+        wmask = torch.cumsum(st["delta"], dim=1)[:, :window] > 0
+    keys = ("near_ids", "near_valid", "wstart", "center", "accept_dropped",
+            "frontier_fallback", "near_fallback", "fb_spill", "far_ids",
+            "far_valid", "rnear", "rnear_valid", "refine_near_totals",
+            "rfar", "rfar_valid", "refine_far_totals")
+    return dict({k: st[k] for k in keys if k in st},
+                mono=st["mono"][:, :cfg.accept_cap],
+                fb=st["fb"][:, :cfg.fb_cap], wmask=wmask)
 
 
 def _push_ranges(ranges, off, pcnt, cand, cs, ce, particle_cap: int,
@@ -1456,8 +1544,8 @@ def _walk(tree, bounds, theta2, g_soft, cfg: BHConfig, n: int,
             "cfg.refine_levels > 0 but the tree was built without "
             "refinement (pass refine_levels/refine_cap/refine_threshold "
             "to build_octree)")
-    walk = _group_collect(tree, pmass8.shape[0], cfg.cell_w2s(bounds.width),
-                          theta2, cfg, W, tgt8[..., :3], tgt8[..., 3], gidx,
+    walk = _group_collect(tree, pmass8.shape[0], bounds.width, theta2, cfg,
+                          W, tgt8[..., :3], tgt8[..., 3], gidx,
                           sliding=_sliding_ok(cfg, W),
                           grid=(grid_bounds(bounds, cfg.max_level)
                                 if cfg.accept_offset else None))

@@ -471,8 +471,8 @@ def domain_accel(pos_loc, mass_loc, bounds, theta2, g, g_soft,
                       tree.rows_s[:, 5:].reshape(G, B, 3)], dim=-1)
     tcell = tree.rows_s[:, 5].to(torch.int32).reshape(G, B) if wide else None
     local_lo, local_hi = my_start - halo, my_start + n_loc + halo
-    walk = _group_collect(tree, n_tot, cfg.cell_w2s(bounds.width), theta2,
-                          cfg, window, tgt8[..., :3], tgt8[..., 3], gidx,
+    walk = _group_collect(tree, n_tot, bounds.width, theta2, cfg, window,
+                          tgt8[..., :3], tgt8[..., 3], gidx,
                           local_bounds=(local_lo, local_hi),
                           grid=(grid_bounds(bounds, cfg.max_level)
                                 if cfg.accept_offset else None))

@@ -3,7 +3,8 @@
 
     python3 scripts/torch_domain_probe.py --world 4 --n 33554431 \
         [--variants '{"fast": {"profile": "fast"}}'] [--steps 0,100,200] \
-        [--compare] [--seed 0] [--out FILE]
+        [--step-variants '{"fb2k": {"fb_cap": 2048}}'] [--compare] \
+        [--seed 0] [--out FILE]
 
 Starts ``--world`` ranks itself (this process is rank 0; one NCCL group
 on a ``file://`` store, card ``cuda:<rank>`` a rank), builds the disc of
@@ -16,7 +17,9 @@ the exact float64 sum
 (each rank sums over its own shard, then one all-reduce), with the
 walk's counters summed over the ranks and the largest rank's memory
 peak.  ``--steps`` steps the first variant's ``ShardedSimulation`` and
-reads it again at those steps from the scene.  ``--compare`` also holds
+reads it again at those steps from the scene, and there with each of
+``--step-variants`` too: the first variant's configuration with those
+``BHConfig`` fields replaced, on the same state.  ``--compare`` also holds
 the first variant's call against the single-card ``bh_accel`` of the
 whole state on rank 0's card, and against the same call with the wide
 rows forced on (``ops/tree.py`` ``WIDE_N`` lowered).  One JSON line a
@@ -24,6 +27,7 @@ reading, on rank 0's standard output and in ``--out``.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +60,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--variants", default='{"auto": {}}')
     ap.add_argument("--steps", default="")
+    ap.add_argument("--step-variants", default="{}")
     ap.add_argument("--compare", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "domain_probe.jsonl"))
@@ -126,8 +131,10 @@ def probe(args) -> int:
                                  n_devices=args.world, engine_options=over,
                                  device=dev, **COMMON)
 
-    def read(sim, label, steps, compare=False):
+    def read(sim, label, steps, compare=False, over=None):
         st, p, cfg = sim.state, sim.settings, sim._bh_config
+        if over:
+            cfg = dataclasses.replace(cfg, **over)
         m = st.effective_mass()
         mesh = sim.mesh
         n_loc = st.pos.shape[0]
@@ -218,6 +225,8 @@ def probe(args) -> int:
                      steps_per_s=(s - done) / (time.perf_counter() - t0))
                 done = s
             read(sim, first, s)
+            for label, over in json.loads(args.step_variants).items():
+                read(sim, label, s, over=over)
     if args.world > 1:
         dist.destroy_process_group()
     return 0

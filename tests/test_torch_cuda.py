@@ -1,7 +1,7 @@
 """The CUDA kernels K1-K6 against their plain torch twins on the card, the
-build's prefix table kernel against the exact sums, and the bh (with and
-without near_sym, and refined) and brute-pallas-mxu engines on the card
-against the CPU path.
+build's prefix table kernel against the exact sums, the collect walk kernel
+against its twin bit for bit, and the bh (with and without near_sym, and
+refined) and brute-pallas-mxu engines on the card against the CPU path.
 
 Marked ``cuda``: they need an NVIDIA GPU (sm_90a) and nvcc, and skip
 without them.  Run them on the card with
@@ -15,12 +15,14 @@ import torch
 
 from nbody_tpu_torch import Simulation
 from nbody_tpu_torch.core.state import Bounds, ParticleState
+from nbody_tpu_torch.ops import collect_walk as cw
 from nbody_tpu_torch.ops import group_force as gf
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.ops import prefix_scan as ps
 from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
 from nbody_tpu_torch.scenes import self_gravitating_disc
+import torch_walk_cases as walk_cases
 from torch_prefix_cases import DF_UNIT, exact_error, prefix_case
 from torch_slabs import (cluster_quad_case, quad_case, self_square_case,
                          species_slab)
@@ -793,3 +795,90 @@ def test_prefix_table_launches_per_bh_step(dev):
     sim.run(2)
     torch.cuda.synchronize()
     assert ps.launch_counts() == {"prefix_table": 6}
+
+
+@pytest.mark.parametrize("name", walk_cases.CASES)
+def test_walk_kernel_matches_twin(dev, name):
+    """The collect walk kernel against its plain twin on the card, bit for
+    bit: every slab row, list, counter, offset, the diff array, the window
+    mask, the frame and, with refined levels, the boxes and descend list
+    (tests/torch_walk_cases.py: the 100k disc at auto_for(100001), profile
+    'domain' at 2^18 rows with the wide rows, accept_offset and the
+    rank's slab, and with the slab narrowed so cells take the far
+    budgets; a 2D state's group slice with the sliding window, a 2D
+    float64 walk with accept_offset and delta_onepass, the adaptive
+    stack's hand-off, and budgets cut so every counter fires).  Two
+    launches are bitwise equal and enqueue with no host sync."""
+    args = walk_cases.case(name, dev, card=True)
+    twin = tt._collect_dense(*args)
+    cw.group_collect(*args)  # builds the kernels
+    torch.cuda.synchronize()
+    cw.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cw.group_collect(*args)
+        again = cw.group_collect(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cw.launch_counts() == {"group_collect": 2}
+    assert walk_cases.mismatches(got, twin, args[5]) == []
+    assert walk_cases.mismatches(again, got, args[5]) == []
+    if name == "budgets":
+        assert all(int(twin[k].sum()) > 0 for k in walk_cases.COUNTERS)
+    if name == "domain-far":
+        assert bool(got["far_valid"].any())
+    if name == "refined":
+        assert bool(got["rvalid"].any()) and "wmask" not in got
+
+
+def test_walk_kernel_refined_handoff_on_card(dev):
+    """The adaptive stack's whole walk on the card (the kernel's dense
+    levels, then the plain refined loop) equals the plain twin's dense and
+    refined levels on the card, output for output."""
+    args = walk_cases.case("refined", dev, card=True)
+    tree, n_total, width, thr, cfg, W, gpos, gmass, gidx = args[:9]
+    ref = tt._collect_finish(
+        tt._collect_refined(tree, tt._collect_dense(*args),
+                            cfg.cell_w2s(width), thr, cfg, W), cfg, W)
+    cw.reset_launch_counts()
+    got = tt._group_collect(tree, n_total, width, 1.0, cfg, W, gpos, gmass,
+                            gidx)
+    assert cw.launch_counts() == {"group_collect": 1}
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_walk_kernel_launches_per_bh_step(dev):
+    """A bh step of the 100k disc walks once, through the kernel: one
+    launch a step; a force call with the twin swapped in walks the same,
+    output for output, and gives the same forces (the benchmark's
+    softening and step: the defaults' eps = 0 lets close pairs blow up)."""
+    pos, vel, mass = self_gravitating_disc(100000, seed=0)
+    sim = Simulation(pos, vel, mass, engine="bh", device="cuda", dt=3e-2,
+                     g_soft=EPS)
+    sim.run(1)
+    cw.reset_launch_counts()
+    sim.run(2)
+    torch.cuda.synchronize()
+    assert cw.launch_counts() == {"group_collect": 2}
+    walks, accs = [], []
+    real_walk, real_kernel = tt._group_collect, cw.group_collect
+
+    def spy(*a, **k):
+        walks.append(real_walk(*a, **k))
+        return walks[-1]
+
+    try:
+        tt._group_collect = spy
+        for dense in (real_kernel, tt._collect_dense):
+            cw.group_collect = dense
+            sim.update_forces()
+            accs.append(sim.state.acc.clone())
+    finally:
+        tt._group_collect, cw.group_collect = real_walk, real_kernel
+    kernel, twin = walks
+    assert sorted(kernel) == sorted(twin)
+    assert [k for k in twin if not torch.equal(kernel[k], twin[k])] == []
+    assert bool(torch.isfinite(accs[0]).all())
+    assert torch.equal(accs[0], accs[1])

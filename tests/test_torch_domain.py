@@ -16,7 +16,9 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+import torch_collect_emulator as emulator
 import torch_dist_workers as workers
+import torch_walk_cases as walk_cases
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse)
 from nbody_tpu.core.state import ParticleState as JaxState
 from nbody_tpu.core.state import SimParams as JaxParams
@@ -24,6 +26,7 @@ from nbody_tpu.ops.traversal import BHConfig as JaxBHConfig
 from nbody_tpu.parallel import domain as jdomain
 from nbody_tpu.parallel.mesh import PARTICLE_AXIS, make_mesh
 from nbody_tpu.scenes import self_gravitating_disc
+from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
 from nbody_tpu_torch.ops.traversal import (
     DOMAIN_MIN_N,
@@ -592,9 +595,10 @@ def test_the_domain_profile_is_the_wide_domain_routes_default():
     cfg = BHConfig.auto_for(1 << 23, profile="domain")
     assert cfg == BHConfig.auto_for(1 << 23, **DOMAIN_OVERRIDES)
     assert (cfg.max_level, cfg.window_pad, cfg.frontier_cap, cfg.accept_cap,
-            cfg.fb_cap, cfg.near_particle_cap, cfg.far_particle_cap,
-            cfg.accept_offset, cfg.group_size, cfg.chunk_groups) == (
-        8, 16384, 16384, 8192, 512, 65536, 16384, True, 8192, 8)
+            cfg.fb_cap, cfg.near_particle_cap, cfg.near_cell_cap,
+            cfg.far_particle_cap, cfg.accept_offset, cfg.group_size,
+            cfg.chunk_groups) == (
+        8, 16384, 16384, 8192, 512, 131072, 4096, 16384, True, 8192, 8)
     assert not BHConfig.auto_for(1 << 23).accept_offset
     with pytest.raises(ValueError, match="profile must be one of"):
         BHConfig.auto_for(1 << 23, profile="wide")
@@ -608,5 +612,23 @@ def test_the_domain_profile_is_the_wide_domain_routes_default():
                                 max_level=5),
                             **workers.COMMON)
     cfg = sim._bh_config
-    assert cfg.accept_offset and cfg.near_particle_cap == 65536
+    assert cfg.accept_offset and cfg.near_particle_cap == 131072
     assert cfg.window_pad == 32 and cfg.max_level == 5
+
+
+@pytest.mark.parametrize("name", ["domain", "domain-far"])
+def test_domain_walk_kernel_arguments_give_the_twins_walk(name):
+    """Profile 'domain' on the domain route at world size 1 with the wide
+    rows forced on (``WIDE_N`` lowered): the collect walk kernel's packed
+    arguments run through its numpy restatement
+    (tests/torch_collect_emulator.py) give the plain twin's dense walk bit
+    for bit, with the wide range decode, the rank's slab as local bounds
+    and accept_offset; with the slab narrowed to the middle half
+    ("domain-far") the cells outside it fill the far list."""
+    args = walk_cases.case(name, "cpu")
+    assert args[4].wide and args[4].accept_offset
+    twin = tt._collect_dense(*args)
+    got = emulator.collect(*args)
+    assert walk_cases.mismatches(got, twin, args[5]) == []
+    assert bool(got["far_valid"].any()) is (name == "domain-far")
+

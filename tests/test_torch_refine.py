@@ -20,6 +20,8 @@ from nbody_tpu.ops import tree as jtree
 from nbody_tpu_torch.core.state import Bounds
 from nbody_tpu_torch.ops import traversal as tt
 from nbody_tpu_torch.ops import tree as ttree
+import torch_collect_emulator as emulator
+import torch_walk_cases as walk_cases
 from torch_parity import jax_fields, one_intra_op_thread, rel_err  # noqa: F401
 
 STATS = ("accept_dropped", "frontier_fallback", "near_fallback", "fb_spill",
@@ -403,3 +405,30 @@ def test_adaptive_engine_runs_the_refined_walk():
                      dt=1e-3, g_soft=EPS)
     sim.run(1)
     assert np.all(np.isfinite(sim.get_points()[0]))
+
+
+def test_refined_walk_continues_the_kernels_dense_state():
+    """With refined levels the collect walk kernel stops at the leaf level
+    and hands the plain refined loop its state: the packed arguments run
+    through the kernel's numpy restatement give the twin's dense state bit
+    for bit (the slabs, their fill, the counters, the diff array, the
+    subgroup boxes and the descend list ``rids`` / ``rvalid``, no window
+    mask), and ``_collect_refined`` and ``_collect_finish`` on it give the
+    plain ``_group_collect``'s walk, output for output."""
+    args = walk_cases.case("refined", "cpu")
+    tree, n_total, width, thr, cfg, W, gpos, gmass, gidx = args[:9]
+    twin = tt._collect_dense(*args)
+    got = emulator.collect(*args)
+    assert walk_cases.mismatches(got, twin, W) == []
+    assert "wmask" not in got and bool(got["rvalid"].any())
+    assert int(got["rvalid"].sum()) % cfg.branch == 0
+    out = tt._collect_finish(
+        tt._collect_refined(tree, got, cfg.cell_w2s(width), thr, cfg, W),
+        cfg, W)
+    ref = tt._group_collect(tree, n_total, width, 1.0, cfg, W, gpos, gmass,
+                            gidx)
+    assert sorted(out) == sorted(ref)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+    assert int(ref["refine_near_totals"].sum()) > 0
+

@@ -15,7 +15,10 @@ from nbody_tpu.core.state import Bounds as JaxBounds
 from nbody_tpu.ops import traversal as jt
 from nbody_tpu_torch.core.state import Bounds, SimParams
 from nbody_tpu_torch.engines.brute_force import force_dense
+from nbody_tpu_torch.ops import collect_walk as cw
 from nbody_tpu_torch.ops import traversal as tt
+import torch_collect_emulator as emulator
+import torch_walk_cases as walk_cases
 from torch_parity import disc, jax_fields, rel_err
 
 STATS = ("accept_dropped", "frontier_fallback", "near_fallback", "fb_spill")
@@ -229,3 +232,50 @@ def test_eval_modes():
     a, _ = tt.bh_accel(*args, tt.BHConfig(eval_mode="xla", **BASE))
     b, _ = tt.bh_accel(*args, tt.BHConfig(**BASE))  # auto on CPU = xla
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("name", ["100k", "2d-sharded", "2d-offset-f64",
+                                  "budgets"])
+def test_walk_kernel_arguments_give_the_twins_walk(name):
+    """The collect walk kernel's packed arguments (``collect_walk.pack``)
+    run through the kernel's numpy restatement
+    (tests/torch_collect_emulator.py) give the plain twin's dense walk bit
+    for bit: the slabs, lists, counters, offsets, diff array, window mask
+    and frame; on the 100k tier, a 2D state's group slice with the
+    sliding window, a 2D float64 walk with accept_offset and
+    delta_onepass, and budgets cut so every counter fires."""
+    args = walk_cases.case(name, "cpu")
+    twin = tt._collect_dense(*args)
+    got = emulator.collect(*args)
+    assert walk_cases.mismatches(got, twin, args[5]) == []
+    assert "wmask" in got and "gc" not in got
+    if name == "budgets":
+        assert all(int(twin[k].sum()) > 0 for k in walk_cases.COUNTERS)
+
+
+def test_walk_kernel_plan():
+    """The kernel's static arguments: a dense level's parent cap is its
+    schedule's next frontier over the branch, the shared memory holds the
+    boxes and two frontier buffers, and what the kernel cannot run is
+    refused before any launch."""
+    cfg = tt.BHConfig.auto_for(100096)
+    pl = cw.plan(cfg, torch.float32)
+    assert pl["parent_cap"][3:7] == [s // 8 for s in cfg.schedule()]
+    assert pl["parent_cap"][7:] == [0] * 9
+    assert pl["max_parents"] == 256 and pl["rf_parent_cap"] == 0
+    assert pl["smem"] == 6 * 64 * 4 + 2 * 256 * 4
+    dom = cw.plan(tt.BHConfig.auto_for(1 << 23, profile="domain"),
+                  torch.float64)
+    assert dom["max_parents"] == 2048
+    assert dom["smem"] == 6 * 128 * 8 + 2 * 2048 * 4
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cw.plan(cfg, torch.float16)
+    with pytest.raises(ValueError, match="levels"):
+        cw.plan(tt.BHConfig(dim=2, max_level=16, start_level=3),
+                torch.float32)
+    with pytest.raises(ValueError, match="shared"):
+        cw.plan(tt.BHConfig.auto_for(1 << 23, frontier_cap=1 << 19,
+                                     max_level=9), torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cw.group_collect(*walk_cases.case("budgets", "cpu"))
+
